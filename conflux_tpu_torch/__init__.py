@@ -1,0 +1,32 @@
+"""conflux-tpu on PyTorch and CUDA: the port of `conflux_tpu` to an NVIDIA
+H100.
+
+The JAX package `conflux_tpu` stays the reference; this package has its
+module layout and function names, and imports torch, numpy and the
+standard library only. So far it holds the single-device crout LU with
+partial pivoting (`lu.single`), its panel factorization (`ops.panel`,
+with the rank-1 block kernel K1 in CUDA, `ops.cuda_panel`), the
+triangular layer (`ops.tri`) and the residual gates (`validation`).
+"""
+
+__version__ = "0.1.0"
+
+from conflux_tpu_torch.errors import ConfluxError, ErrorCode
+
+
+def __getattr__(name):
+    # the factorization API resolves lazily to keep `import` light
+    import importlib
+
+    lazy = {
+        "lu_factor": "conflux_tpu_torch.lu.single",
+        "lu_residual": "conflux_tpu_torch.lu.single",
+        "lu_residual_blocked": "conflux_tpu_torch.validation",
+    }
+    if name in lazy:
+        return getattr(importlib.import_module(lazy[name]), name)
+    raise AttributeError(name)
+
+
+__all__ = ["ConfluxError", "ErrorCode", "lu_factor", "lu_residual",
+           "lu_residual_blocked"]

@@ -1,0 +1,16 @@
+from conflux_tpu_torch.ops.panel import lu_nopivot, select_pivots
+from conflux_tpu_torch.ops.tri import (
+    trsm_left_lower_unit,
+    trsm_right_lower_t,
+    unit_lower,
+    upper,
+)
+
+__all__ = [
+    "select_pivots",
+    "lu_nopivot",
+    "unit_lower",
+    "upper",
+    "trsm_left_lower_unit",
+    "trsm_right_lower_t",
+]

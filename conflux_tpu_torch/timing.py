@@ -1,0 +1,45 @@
+"""Device timing with CUDA events.
+
+PyTorch counterpart of `conflux_tpu/timing.py`. Work is enqueued on the
+current stream between two events and timed by the device itself; the JAX
+package's scalar-readback completion fence has no counterpart here.
+Timing needs a card: with none these functions raise instead of timing
+the CPU.
+"""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable, List, Tuple
+
+import torch
+
+
+def timed_run(fn: Callable, *args) -> Tuple[float, object]:
+    """One run of fn(*args) in device milliseconds, plus its result."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device timing needs a CUDA device")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def timed_reps(fn: Callable, *args, reps: int = 3) -> Tuple[List[float], object]:
+    """One untimed warm-up (it builds kernels and fills the allocator's
+    cache), then `reps` timed runs; returns (ms list, last result)."""
+    out = fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        ms, out = timed_run(fn, *args)
+        times.append(ms)
+    return times, out
+
+
+def median_ms(fn: Callable, *args, reps: int = 10) -> float:
+    """Median device time of `reps` runs after one warm-up."""
+    return statistics.median(timed_reps(fn, *args, reps=reps)[0])

@@ -1,0 +1,210 @@
+"""Parity of the PyTorch port's panel factorization (conflux_tpu_torch/ops/
+panel.py) with the JAX reference (conflux_tpu/ops/panel.py), and checks of
+the rank-1 block kernel K1 (conflux_tpu_torch/ops/cuda_panel.py).
+
+The plain rank-1 block is held to both the JAX twin and the Pallas kernel
+run in interpret mode, as tests/test_panel.py runs it. Pivots must be
+equal; values agree within 1e-5 * max|ref| (both sides are fp32 with the
+same operation order up to the summation order of the matrix products).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import conflux_tpu.ops.panel as jpanel
+import conflux_tpu_torch.ops.panel as tpanel
+from conflux_tpu.ops.pallas_panel import rank1_block_pallas_t
+from conflux_tpu_torch.ops import cuda_panel
+
+TOL = 1e-5
+MODES = ["unforced", "forced", "finish"]
+
+
+def _close(got, ref, tol=TOL):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err <= tol, err
+
+
+def _block(m, w, mode, seed, masked=True):
+    """[w, m] transposed block and [1, m] availability, from a seed. Forced
+    mode serves diagonally dominant tiles, so its leading lanes are made
+    so; one lane past the forced ones is masked."""
+    rng = np.random.default_rng(seed)
+    Mt = rng.standard_normal((w, m)).astype(np.float32)
+    if mode == "forced":
+        Mt[np.arange(w), np.arange(w)] += w
+    avail = np.ones((1, m), np.float32)
+    if masked:
+        avail[0, m - 3] = 0.0
+    return Mt, avail
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,w", [(96, 16), (32, 8), (200, 128)])
+def test_rank1_block_matches_jax_twin_and_pallas(m, w, mode):
+    Mt, avail = _block(m, w, mode, seed=m + w)
+    forced, finish = mode == "forced", mode == "finish"
+    got = tpanel._rank1_block_t(torch.from_numpy(Mt), torch.from_numpy(avail),
+                                0, forced, finish)
+    twin = jpanel._rank1_block_t(jnp.asarray(Mt), jnp.asarray(avail), 0,
+                                 forced, finish)
+    kern = rank1_block_pallas_t(jnp.asarray(Mt), jnp.asarray(avail),
+                                forced=forced, j0=0, interpret=True,
+                                finish=finish)
+    for ref in (twin, kern):
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]) > 0)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+        _close(got[0].numpy(), ref[0])
+
+
+def test_rank1_block_leaves_inputs_unchanged(rng):
+    Mt = torch.from_numpy(rng.standard_normal((8, 40)).astype(np.float32))
+    avail = torch.ones(1, 40)
+    Mt0, avail0 = Mt.clone(), avail.clone()
+    tpanel._rank1_block_t(Mt, avail, 0, False)
+    assert torch.equal(Mt, Mt0) and torch.equal(avail, avail0)
+
+
+def _straight_rank1(Mt, avail, forced, j0=0):
+    """K1's arithmetic in numpy: the straight right-looking elimination,
+    one column at a time over all later rows (no micro-panels)."""
+    Mt, avail = Mt.copy(), avail[0].copy()
+    w, m = Mt.shape
+    piv = np.zeros(w, np.int64)
+    for jj in range(w):
+        col = Mt[jj]
+        if forced:
+            p = j0 + jj
+        else:
+            p = int(np.argmax(np.where(avail > 0, np.abs(col), -np.inf)))
+        piv[jj] = p
+        safe = col[p] if col[p] != 0 else np.float32(1.0)
+        elim = avail > 0
+        elim[p] = False
+        mult = np.where(elim, col / safe, np.float32(0.0)).astype(np.float32)
+        Mt[jj + 1:] -= Mt[jj + 1:, p:p + 1] * mult[None, :]
+        Mt[jj] = np.where(elim, mult, col)
+        avail[p] = 0.0
+    return Mt, piv
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,w", [(96, 40), (300, 128)])
+def test_straight_elimination_matches_two_level(m, w, mode):
+    # K1 replaces the two-level micro-panel structure by the straight
+    # elimination: equal pivots, equal non-pivot lanes in every mode, and
+    # in forced/finish mode equal pivot lanes too (the straight form
+    # freezes a pivot lane once selected, holding its merged factor)
+    Mt, avail = _block(m, w, mode, seed=7 * m + w)
+    forced, finish = mode == "forced", mode == "finish"
+    got, piv = _straight_rank1(Mt, avail, forced)
+    ref = tpanel._rank1_block_t(torch.from_numpy(Mt), torch.from_numpy(avail),
+                                0, forced, finish)
+    np.testing.assert_array_equal(piv, ref[2].numpy())
+    keep = np.ones(m, bool)
+    if mode == "unforced":
+        keep[piv] = False
+    _close(got[:, keep], ref[0].numpy()[:, keep], tol=2e-5)
+
+
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("m,w,block", [(200, 96, 32), (300, 160, 64)])
+def test_factor_panel_raw_matches_jax(rng, m, w, block, merged):
+    A = rng.standard_normal((m, w)).astype(np.float32)
+    active = np.ones(m, bool)
+    active[::37] = False
+    piv, ok, M, lu = tpanel.factor_panel_raw(
+        torch.from_numpy(A), torch.from_numpy(active), w, block=block,
+        merged=merged)
+    jpiv, jok, jM, jlu = jpanel.factor_panel_raw(
+        jnp.asarray(A), jnp.asarray(active), w, block=block, merged=merged)
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    _close(M.numpy(), jM)
+    if merged:
+        _close(lu.numpy(), jlu)
+    else:
+        assert lu is None and jlu is None
+
+
+def test_factor_panel_raw_across_groups_matches_jax(rng):
+    # w = 640 crosses the _GROUP = 512 boundary: the outer grouped update
+    # and its finishing write, at the main path's block=128 and
+    # merged=False. The 640-long elimination chain amplifies the fp32
+    # summation-order differences of the two packages' products by the
+    # panel's pivot growth, so values are held to 1e-4 here (measured
+    # 4e-5); pivots must still be equal
+    m, w = 700, 640
+    A = rng.standard_normal((m, w)).astype(np.float32)
+    piv, ok, M, _ = tpanel.factor_panel_raw(
+        torch.from_numpy(A), torch.ones(m, dtype=torch.bool), w, block=128,
+        merged=False)
+    jpiv, _, jM, _ = jpanel.factor_panel_raw(
+        jnp.asarray(A), jnp.ones(m, bool), w, block=128, merged=False)
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+    assert bool(ok.all())
+    _close(M.numpy(), jM, tol=1e-4)
+    # the finished pivot rows are the merged factor: P A == L U on them
+    merged = M.numpy()[piv.numpy()]
+    L = np.tril(merged, -1) + np.eye(w, dtype=np.float32)
+    np.testing.assert_allclose(A[piv.numpy()], L @ np.triu(merged),
+                               rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("m,w", [(24, 8), (300, 140)])
+def test_select_pivots_and_factor_panel_match_jax(rng, m, w):
+    A = rng.standard_normal((m, w)).astype(np.float32)
+    active = np.ones(m, bool)
+    active[3] = False
+    piv, ok, lu = tpanel.select_pivots(torch.from_numpy(A),
+                                       torch.from_numpy(active), w)
+    jpiv, jok, jlu = jpanel.select_pivots(jnp.asarray(A), jnp.asarray(active),
+                                          w)
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    _close(lu.numpy(), jlu)
+    piv2, _, M = tpanel.factor_panel(torch.from_numpy(A),
+                                     torch.from_numpy(active), w)
+    _, _, jM = jpanel.factor_panel(jnp.asarray(A), jnp.asarray(active), w)
+    np.testing.assert_array_equal(piv2.numpy(), np.asarray(jpiv))
+    _close(M.numpy(), jM)
+
+
+def test_select_pivots_flags_insufficient_rows(rng):
+    A = rng.standard_normal((6, 4)).astype(np.float32)
+    active = torch.zeros(6, dtype=torch.bool)
+    active[:2] = True
+    _, ok, _ = tpanel.select_pivots(torch.from_numpy(A), active, 4)
+    assert ok[:2].all() and not ok[2:].any()
+
+
+@pytest.mark.parametrize("n", [8, 200])
+def test_lu_nopivot_matches_jax(rng, n):
+    A = (rng.standard_normal((n, n)) + n * np.eye(n)).astype(np.float32)
+    got = tpanel.lu_nopivot(torch.from_numpy(A)).numpy()
+    _close(got, jpanel.lu_nopivot(jnp.asarray(A)))
+    L = np.tril(got, -1) + np.eye(n, dtype=np.float32)
+    res = np.linalg.norm(A - L @ np.triu(got)) / np.linalg.norm(A)
+    assert res < 1e-5, res
+
+
+def test_dispatch_takes_plain_version_on_cpu_only(rng):
+    Bt = torch.from_numpy(rng.standard_normal((8, 40)).astype(np.float32))
+    avail = torch.ones(1, 40)
+    out = tpanel._rank1_dispatch(Bt, avail, 0, False)
+    ref = tpanel._rank1_block_t(Bt, avail, 0, False)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+    with pytest.raises(ValueError, match="no rank-1 block kernel"):
+        tpanel._rank1_dispatch(Bt.to("meta"), avail.to("meta"), 0, False)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    before = cuda_panel.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_panel.rank1_block_t(torch.zeros(4, 16), torch.ones(1, 16))
+    assert cuda_panel.LAUNCHES == before
