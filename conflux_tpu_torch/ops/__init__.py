@@ -1,7 +1,9 @@
 from conflux_tpu_torch.ops.panel import lu_nopivot, select_pivots
 from conflux_tpu_torch.ops.tri import (
+    potrf_tile,
     trsm_left_lower_unit,
     trsm_right_lower_t,
+    trsm_right_upper,
     unit_lower,
     upper,
 )
@@ -11,6 +13,8 @@ __all__ = [
     "lu_nopivot",
     "unit_lower",
     "upper",
+    "potrf_tile",
     "trsm_left_lower_unit",
     "trsm_right_lower_t",
+    "trsm_right_upper",
 ]

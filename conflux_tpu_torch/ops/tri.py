@@ -204,9 +204,31 @@ def trsm_left_lower_unit(L: torch.Tensor, B: torch.Tensor,
     return torch.linalg.solve_triangular(L, B, upper=False, unitriangular=True)
 
 
+def trsm_right_upper(B: torch.Tensor, U: torch.Tensor,
+                     method: str = "solve") -> torch.Tensor:
+    """X = B U^{-1} with U upper."""
+    if method == "invert":
+        return _solve_right_upper_blocked(B, U)
+    return torch.linalg.solve_triangular(U, B, upper=True, left=False)
+
+
 def trsm_right_lower_t(B: torch.Tensor, L: torch.Tensor,
                        method: str = "solve") -> torch.Tensor:
     """X = B L^{-T} with L lower."""
     if method == "invert":
         return _solve_right_upper_blocked(B, L.T)
     return torch.linalg.solve_triangular(L.T, B, upper=True, left=False)
+
+
+def potrf_tile(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a square SPD tile. For an SPD tile the
+    unpivoted LU is the LDL^T factorization (A = Lu D Lu^T, D = diag(U)),
+    so the factor is Lu * sqrt(D), and the elimination runs through the
+    forced rank-1 blocks of `ops/panel.lu_nopivot` (K1 on the card).
+    Nonpositive diagonal entries (non-SPD input) zero their column."""
+    from conflux_tpu_torch.ops.panel import lu_nopivot  # panel imports tri
+
+    M = lu_nopivot(A)
+    s = torch.sqrt(torch.clamp(torch.diagonal(M), min=0.0))
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    return (torch.tril(M, -1) + eye) * s[None, :]

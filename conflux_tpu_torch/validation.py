@@ -1,4 +1,5 @@
-"""Correctness gates: ||PA - LU||_F / (N ||A||_F) and pivot growth.
+"""Correctness gates: ||PA - LU||_F / (N ||A||_F), ||A - L L^T||_F /
+(N ||A||_F) and pivot growth.
 
 PyTorch counterpart of the single-device gates of
 `conflux_tpu/validation.py` (the reference's miniapp gate,
@@ -49,6 +50,37 @@ def lu_residual_blocked(A: torch.Tensor, F: torch.Tensor, perm: torch.Tensor,
         Lb += ((c == r) & (r < n)).float()
         Arows = A[perm[r0:r1]].float()
         Rb = Arows - Lb @ U
+        r2 += (Rb * Rb).sum().double()
+        a2 += (Arows * Arows).sum().double()
+    return float(torch.sqrt(r2) / (n * torch.sqrt(a2)))
+
+
+def cholesky_residual_dense(A, L) -> float:
+    """||A - L L^T||_F / (N ||A||_F) on host arrays, in float64."""
+    A = np.asarray(A, np.float64)
+    L = np.asarray(L, np.float64)
+    n = A.shape[0]
+    return float(np.linalg.norm(A - L @ L.T) / (n * np.linalg.norm(A)))
+
+
+def cholesky_residual_blocked(A: torch.Tensor, L: torch.Tensor,
+                              block: int = 4096) -> float:
+    """FULL ||A - L L^T||_F / (N ||A||_F) on the factor's device, for
+    factors too large for a dense float64 reconstruction: L (lower
+    triangular, as `cholesky` returns it) stays where it is and A streams
+    through in `block`-row slices, so the device holds A, L and two row
+    blocks. IEEE fp32 reconstruction, float64 block sums on the device,
+    one host read of the final scalar."""
+    L = torch.as_tensor(L)
+    dev = L.device
+    A = torch.as_tensor(A, device=dev)
+    n = L.shape[0]
+    r2 = torch.zeros((), dtype=torch.float64, device=dev)
+    a2 = torch.zeros((), dtype=torch.float64, device=dev)
+    for r0 in range(0, n, block):
+        r1 = min(r0 + block, n)
+        Arows = A[r0:r1].float()
+        Rb = Arows - L[r0:r1].float() @ L.float().T
         r2 += (Rb * Rb).sum().double()
         a2 += (Arows * Arows).sum().double()
     return float(torch.sqrt(r2) / (n * torch.sqrt(a2)))

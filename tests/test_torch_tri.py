@@ -121,6 +121,18 @@ def test_trsm_left_lower_unit_matches_jax(rng, n, cols, method):
     assert _normwise(got, ref) <= 1e-5
 
 
+@pytest.mark.parametrize("n,rows", [(24, 16), (300, 40)])
+@pytest.mark.parametrize("method", ["invert", "solve"])
+def test_trsm_right_upper_matches_jax(rng, n, rows, method):
+    U = _tri(rng, n, lower=False, unit=False)
+    B = rng.standard_normal((rows, n)).astype(np.float32)
+    ref = np.asarray(jtri.trsm_right_upper(jnp.asarray(B), jnp.asarray(U),
+                                           method=method))
+    got = ttri.trsm_right_upper(torch.from_numpy(B), torch.from_numpy(U),
+                                method=method).numpy()
+    assert _normwise(got, ref) <= 1e-5
+
+
 @pytest.mark.parametrize("n,rows", [(24, 16), (300, 40), (600, 96)])
 @pytest.mark.parametrize("method", ["invert", "solve"])
 def test_trsm_right_lower_t_matches_jax(rng, n, rows, method):
