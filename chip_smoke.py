@@ -7,8 +7,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: a CUDA card is required; print its name and power limit, the
      torch version, and assert that fp32 matrix products stay IEEE fp32;
-  2. build: build (or load) K1, the rank-1 panel kernel, and K3, the fused
-     trailing update, from csrc/, one nvcc each, started together;
+  2. build: build (or load) every kernel from csrc/, one nvcc per source,
+     started together: K1, the rank-1 panel kernel (rank1_panel.cu); K3,
+     the fused trailing update (schur_update.cu); K2, the big-K R - A@B,
+     and K4, the plain GEMM (bigk_gemm.cu); K5 and K6, the row scatter and
+     gather (row_move.cu);
   3. K1 vs plain: K1 against its plain PyTorch version on the same CUDA
      inputs, in unforced, forced and finish modes, at the main path's
      block shapes plus a ragged one with a masked lane, and forced at the
@@ -17,20 +20,36 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. K3 vs plain: K3 against its plain PyTorch version on the same CUDA
      inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's first and a
      mid-run trailing update and at a ragged span;
-  5. small end to end: crout, flat and recursive LU at N=2048 in 'high'
-     and 'highest', Cholesky flat and recursive, and the two solves;
-  6. crout main path: lu_factor(A, v=1536, precision='high') at N=32768
-     f32 (one warm-up, then timed runs), K1's launches per factorization,
-     peak device memory, and the blocked residual;
-  7. flat path: the same with scheme='flat', K1's and K3's launches;
-  8. Cholesky path: cholesky(A, v=1536, precision='high') at N=32768.
+  5. K2 vs plain: K2 against its plain version in the three modes at the
+     crout path's panel updates (k = 1536, 15360, 30720), its pivot-row
+     refresh at k = 15360 and a ragged shape, with TFLOP/s;
+  6. K4 vs plain: K4 against its plain version for float32 and bfloat16
+     operands at experiments/prof_pallas_gemm.py's shapes;
+  7. K5 and K6 vs plain, bit for bit: the swap compaction's [1536, 32768]
+     push-up into a [32768, 32768] R, and the gathers of that many rows and
+     of the main path's compaction (31232 of 32768 rows), with GB/s;
+  8. small end to end: crout ('gather', 'split', 'swap'), flat and
+     recursive LU at N=2048 in 'high' and 'highest', Cholesky flat and
+     recursive, and the two solves;
+  9. crout main path: lu_factor(A, v=1536, precision='high') at N=32768
+     f32 (one warm-up, then timed runs), every kernel's launches per
+     factorization, peak device memory, and the blocked residual;
+ 10. flat path: the same with scheme='flat';
+ 11. Cholesky path: cholesky(A, v=1536, precision='high') at N=32768;
+ 12. swap and split paths: crout with compaction='swap' and 'split'.
 
-Each path's launch counts are set to 0 just before it and read just after.
-The line before the last but one is a JSON object with each kernel's
-numbers: its `launches` are summed over the three main paths (each one
-warm-up and REPS timed factorizations), and `launches_by_path` gives each
-path's count. The line before the last is the card's name and power
-limit; the last line is {"ok": true, "device": {...}}.
+Each kernel phase times the kernel, its plain version and, where one
+PyTorch call computes the same function, that call (the kernel's
+`library_ms`; the port never calls it). Each path's launch counts are set
+to 0 just before it and read just after. The line before the last but one
+is a JSON object with each kernel's numbers: its `launches` are summed over
+the main paths (each one warm-up and REPS timed factorizations), and
+`launches_by_path` gives each path's count; K4, which no path runs (no path
+of the JAX package calls matmul_pallas), counts the launches of its own
+phase. `bound_ms` is the least time the card could take for the kernel's
+representative call, from this run's shapes. The line before the last is
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}.
 """
 
 import json
@@ -51,7 +70,41 @@ K1_CROUT = (N // V) * (V // 128) + (N % V) // 128
 K1_FLAT = 2 * K1_CROUT
 K1_CHOLESKY = (N // V) * (V // 64) + (N % V) // 64
 # K3 launches per flat factorization: one per step with k + w < n
-K3_FLAT = -(-N // V) - 1
+STEPS = -(-N // V)         # 22: 21 panels of 1536 columns, one of 512
+K3_FLAT = STEPS - 1
+# split and swap run each panel through factor_panel: the unforced search,
+# then the forced refactor of the pivot rows, as on flat
+K1_COMPACT = K1_FLAT
+# K2 on split and swap: one panel update per step with k > 0 (21) and one
+# pivot-row refresh per step with k > 0 and k + w < n (20)
+K2_COMPACT = (STEPS - 1) + (STEPS - 2)
+# swap, per step: K6 gathers lu_top = M[piv] and Rpiv = R[piv]; where the
+# kept prefix is not empty (every step but the last), K6 gathers the
+# movers and K5 scatters them
+K5_SWAP = STEPS - 1
+K6_SWAP = 2 * STEPS + (STEPS - 1)
+# split, per step: K6 gathers the panel T[origin, k:k+w] and lu_top; with
+# k > 0, Lbuf[piv]; with k + w < n, T[origin[piv], k+w:]; where rows stay
+# live (every step but the last), M[live_idx], and with k > 0 also
+# Lbuf[live_idx]
+K6_SPLIT = 2 * STEPS + (STEPS - 1) + (STEPS - 1) + (STEPS - 1) + (STEPS - 2)
+KERNELS = ("rank1_panel", "schur_update", "sub_matmul_bigk", "matmul",
+           "scatter_rows", "gather_rows")
+# launches per factorization of each path; a kernel left out runs 0 times
+PATH_LAUNCHES = {
+    "crout": {"rank1_panel": K1_CROUT},
+    "flat": {"rank1_panel": K1_FLAT, "schur_update": K3_FLAT},
+    "cholesky": {"rank1_panel": K1_CHOLESKY},
+    "swap": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
+             "scatter_rows": K5_SWAP, "gather_rows": K6_SWAP},
+    "split": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
+              "gather_rows": K6_SPLIT},
+}
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense) for the
+# bound_ms of each kernel: device memory, bf16 tensor cores, fp32 FMA
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
+FP32_FLOP_S = 67e12
 RESIDUAL_GATE = 1e-6
 # K1 applies the rank-1 updates in another order than its two-level plain
 # version, so the two agree to a few fp32 roundings, not bit for bit
@@ -73,10 +126,54 @@ K3_SHAPES = (("first", 32768, 32768, 1536, 1536, 32768),
 # 'high'/'bf16': kernel and plain version take the same bf16 operand
 # values and differ only in fp32 summation order
 K3_TOL = 1e-5              # of max(|A| @ |B|)
+# K2 (tag, m, k, n): R [m, n] - A [m, k] @ B [k, n] at the crout path's
+# panel updates of steps k = 1536, 15360 and 30720, its pivot-row refresh
+# at k = 15360, and a ragged shape whose K is split across blocks
+K2_SHAPES = (("panel k=1536", 31232, 1536, 1536),
+             ("panel k=15360", 17408, 15360, 1536),
+             ("panel k=30720", 2048, 30720, 1536),
+             ("refresh k=15360", 1536, 15360, 15872),
+             ("ragged", 1000, 3001, 300))
+# K4 (m, k, n): experiments/prof_pallas_gemm.py's shapes; the gate is K3's
+K4_SHAPES = ((16384, 512, 16384), (8192, 1024, 8192), (8192, 8192, 8192))
+# K5/K6: swap's push-up of V rows into an [N, N] R, and the gathers of V
+# rows and of the main path's first compaction (N - V of N rows)
+ROW_MOVES = (("scatter", V), ("gather", V), ("gather", N - V))
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def _bound(flops: float, bytes_: float, flop_s: float):
+    """(least ms, what bounds it): the larger of the bytes over the card's
+    memory rate and the operations over its peak for their type."""
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    t_ops = flops / flop_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cusolver_lu(A):
+    """torch.linalg.lu_factor(A) through cuSOLVER (PyTorch's default picks
+    MAGMA's batched routines for this shape), restored afterwards."""
+    import torch
+
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    out = torch.linalg.lu_factor(A)
+    torch.backends.cuda.preferred_linalg_library("default")
+    return out
+
+
+def _medium_precision(fn, *args, **kwargs):
+    """fn(*args, **kwargs) under torch's fp32 matmul precision 'medium',
+    restored to 'highest' afterwards (the setting is read when a product
+    is launched)."""
+    import torch
+
+    torch.set_float32_matmul_precision("medium")
+    out = fn(*args, **kwargs)
+    torch.set_float32_matmul_precision("highest")
+    return out
 
 
 def phase_device():
@@ -101,23 +198,31 @@ def phase_device():
     return smi
 
 
+SOURCES = ("rank1_panel", "schur_update", "bigk_gemm", "row_move")
+
+
 def phase_build():
-    from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel
+    from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel, \
+        cuda_scatter
 
     t0 = time.perf_counter()
-    _build.build(["rank1_panel", "schur_update"])
+    _build.build(SOURCES)
     cuda_panel._load()
     cuda_gemm._load()
-    print(f"build: rank1_panel and schur_update built and loaded in "
+    cuda_gemm._load_bigk()
+    cuda_scatter._load()
+    print(f"build: {', '.join(SOURCES)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("rank1_panel", "schur_update"):
+    for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
                 print(f"  {name}: " + line.strip())
     print(f"  schur_update: dynamic shared memory "
           f"{cuda_gemm._load().conflux_schur_update_smem_bytes()} bytes "
-          f"per CTA (rank1_panel: up to 200 KB, sized per call)")
+          f"per CTA, sub_matmul_bigk "
+          f"{cuda_gemm._load_bigk().conflux_sub_matmul_bigk_smem_bytes()} "
+          f"(rank1_panel: up to 200 KB, sized per call)")
 
 
 def phase_k1():
@@ -169,16 +274,30 @@ def phase_k1():
         scale = float(ref[0][:, keep].abs().max())
         t_k = median_ms(kernel)
         t_p = median_ms(plain)
+        # the library's LU with partial pivoting of the [m, w] block, every
+        # lane available, through cuSOLVER; forced elimination has none
+        t_l = None if forced else median_ms(_cusolver_lu, Mt.T)
+        # each input read once and each output written once; w (w - 1) / 2
+        # rank-1 multiply-adds per lane (2 operations each) and m w
+        # divisions in fp32
+        bound = _bound(1.0 * w * (w - 1) * m + w * m,
+                       4.0 * (2 * w * m + 2 * m) + 8.0 * w, FP32_FLOP_S)
         tag = f"K1 [{w}, {m}] {mode} j0={j0}"
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
         print(f"{tag}: pivots equal {piv_ok}, ok equal {ok_ok}, avail equal "
               f"{av_ok}, max|diff| {diff:.3e} (max|ref| {scale:.3e}, rel "
-              f"{diff / scale:.3e}), kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+              f"{diff / scale:.3e}), kernel {t_k:.4f} ms, plain {t_p:.4f} "
+              f"ms, torch.linalg.lu_factor (cuSOLVER) {lib}, bound "
+              f"{bound[0]:.4f} ms "
+              f"({bound[1]})")
         if not (piv_ok and ok_ok and av_ok):
             fail(f"{tag}: pivots/ok/avail disagree")
         if not diff <= KERNEL_TOL * scale:
             fail(f"{tag}: max|diff| {diff} > {KERNEL_TOL} * {scale}")
         rows.append({"shape": (w, m), "mode": mode, "j0": j0,
-                     "max_abs_err": diff, "ms": t_k, "plain_ms": t_p})
+                     "max_abs_err": diff, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_l, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
     return rows
 
 
@@ -192,11 +311,49 @@ def _bf16_ulp(x):
     return torch.where(x == 0, 2.0 ** -133, ulp)
 
 
-def phase_k3():
+def phase_medium_probe() -> bool:
+    """Does this torch run an fp32 product under matmul precision 'medium'
+    as one bf16 pass (the 'bf16' mode of K2 and K3)? Only then is addmm
+    under 'medium' their library call."""
+    import torch
+
+    from conflux_tpu_torch.ops.tri import schur_dot
+
+    g = torch.Generator(device="cuda").manual_seed(77)
+    A = torch.randn(2048, 2048, generator=g, device="cuda")
+    B = torch.randn(2048, 2048, generator=g, device="cuda")
+    got = _medium_precision(torch.mm, A, B)
+    diff = float((got - schur_dot(A, B, "bf16")).abs().max())
+    scale = float(torch.mm(A.abs(), B.abs()).max())
+    ok = diff <= K3_TOL * scale
+    print(f"fp32 matmul precision 'medium' against one bf16 pass: max|diff| "
+          f"{diff / scale:.3e} of max(|A|@|B|) (gate {K3_TOL:.0e}): "
+          + ("bf16, so addmm under 'medium' is the 'bf16' library call" if ok
+             else "not bf16 (TF32 keeps more bits), so 'bf16' has no "
+             "library call"))
+    if torch.get_float32_matmul_precision() != "highest":
+        fail("fp32 matmul precision not restored to 'highest'")
+    return ok
+
+
+def _library_sub(mode: str, medium_bf16: bool):
+    """The one PyTorch call that computes R - A @ B in `mode`, or None:
+    addmm under 'medium' for 'bf16' where that is one bf16 pass; 'high'
+    (three bf16 passes) and 'bf16out' (the result rounded into a bf16 R)
+    have none."""
+    import torch
+
+    if mode != "bf16" or not medium_bf16:
+        return None
+    return lambda R, A, B: _medium_precision(torch.addmm, R, A, B,
+                                             beta=1, alpha=-1)
+
+
+def phase_k3(medium_bf16: bool):
     import torch
 
     from conflux_tpu_torch.ops import cuda_gemm
-    from conflux_tpu_torch.ops.gemm import _schur_update_t
+    from conflux_tpu_torch.ops.gemm import MODES, _schur_update_t
     from conflux_tpu_torch.timing import median_ms
 
     rows = []
@@ -235,20 +392,204 @@ def phase_k3():
             del d
             t_k = median_ms(cuda_gemm.schur_update, got, A, B, c0, mode, c1)
             t_p = median_ms(_schur_update_t, ref, A, B, c0, mode, c1)
-            tflops = 2.0 * m * (c1 - c0) * k / (t_k * 1e-3) / 1e12
+            lib = _library_sub(mode, medium_bf16)
+            t_l = (None if lib is None else
+                   median_ms(lib, R0[:, c0:c1], A, B))
+            nt = c1 - c0
+            esize = R0.element_size()
+            bound = _bound(MODES[mode][1] * 2.0 * m * nt * k,
+                           2.0 * esize * m * nt + 4.0 * (m * k + k * nt),
+                           BF16_FLOP_S)
+            tflops = 2.0 * m * nt * k / (t_k * 1e-3) / 1e12
+            libs = "none" if t_l is None else f"{t_l:.4f} ms"
             print(f"K3 {tag} R [{m}, {ncols}] k {k} span [{c0}, {c1}) "
                   f"{mode:7s}: max|diff| {diff:.3e}, {check}, outside span "
                   f"unchanged {outside}, kernel {t_k:.4f} ms "
-                  f"({tflops:.1f} TFLOP/s of A@B), plain {t_p:.4f} ms")
+                  f"({tflops:.1f} TFLOP/s of A@B), plain {t_p:.4f} ms, "
+                  f"library {libs}, bound {bound[0]:.4f} ms ({bound[1]})")
             if not outside:
                 fail(f"K3 {tag} {mode}: columns outside [{c0}, {c1}) changed")
             if not good:
                 fail(f"K3 {tag} {mode}: kernel and plain disagree ({check})")
             rows.append({"shape": tag, "mode": mode, "max_abs_err": diff,
-                         "ms": t_k, "plain_ms": t_p})
+                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
             del ref, got
         del A, B, R32
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k2(medium_bf16: bool):
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_gemm
+    from conflux_tpu_torch.ops.gemm import MODES, _sub_matmul_bigk_t
+    from conflux_tpu_torch.timing import median_ms
+
+    rows = []
+    for si, (tag, m, k, n) in enumerate(K2_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(900 + si)
+        A = torch.randn(m, k, generator=g, device="cuda")
+        B = torch.randn(k, n, generator=g, device="cuda")
+        R32 = torch.randn(m, n, generator=g, device="cuda")
+        scale = float(torch.mm(A.abs(), B.abs()).max())
+        splits = cuda_gemm.sub_matmul_bigk_splits(m, n, k)
+        for mode in ("high", "bf16", "bf16out"):
+            R = R32.to(torch.bfloat16) if mode == "bf16out" else R32
+            R0 = R.clone()
+            ref = _sub_matmul_bigk_t(R, A, B, mode)
+            got = cuda_gemm.sub_matmul_bigk(R, A, B, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(R, R0):
+                fail(f"K2 {tag} {mode}: R was written")
+            d = (got.float() - ref.float()).abs()
+            diff = float(d.max())
+            if mode == "bf16out":
+                ulp = _bf16_ulp(ref)
+                bad = int((d > ulp + K3_TOL * scale).sum())
+                check = (f"max {float((d / ulp).max()):.3f} bf16 ulp, {bad} "
+                         f"over 1 ulp + {K3_TOL:.0e} * max(|A|@|B|)")
+                good = bad == 0
+            else:
+                check = (f"rel to max(|A|@|B|) {diff / scale:.3e} "
+                         f"(gate {K3_TOL:.0e})")
+                good = diff <= K3_TOL * scale
+            del d
+            t_k = median_ms(cuda_gemm.sub_matmul_bigk, R, A, B, mode)
+            t_p = median_ms(_sub_matmul_bigk_t, R, A, B, mode)
+            lib = _library_sub(mode, medium_bf16)
+            t_l = None if lib is None else median_ms(lib, R, A, B)
+            bound = _bound(MODES[mode][1] * 2.0 * m * n * k,
+                           2.0 * R.element_size() * m * n
+                           + 4.0 * (m * k + k * n), BF16_FLOP_S)
+            tflops = 2.0 * m * n * k / (t_k * 1e-3) / 1e12
+            libs = "none" if t_l is None else f"{t_l:.4f} ms"
+            print(f"K2 {tag} R [{m}, {n}] k {k} ({splits} K splits) "
+                  f"{mode:7s}: max|diff| {diff:.3e}, {check}, kernel "
+                  f"{t_k:.4f} ms ({tflops:.1f} TFLOP/s of A@B), plain "
+                  f"{t_p:.4f} ms, library {libs}, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})")
+            if not good:
+                fail(f"K2 {tag} {mode}: kernel and plain disagree ({check})")
+            rows.append({"shape": tag, "mode": mode, "max_abs_err": diff,
+                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
+            del ref, got, R, R0
+        del A, B, R32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k4():
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_gemm
+    from conflux_tpu_torch.ops.gemm import _matmul_t
+    from conflux_tpu_torch.timing import median_ms
+
+    rows = []
+    for si, (m, k, n) in enumerate(K4_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(1300 + si)
+        A32 = torch.randn(m, k, generator=g, device="cuda")
+        B32 = torch.randn(k, n, generator=g, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            A, B = A32.to(dtype), B32.to(dtype)
+            ref = _matmul_t(A, B)
+            got = cuda_gemm.matmul(A, B)
+            torch.cuda.synchronize()
+            scale = float(torch.mm(A.float().abs(), B.float().abs()).max())
+            diff = float((got - ref).abs().max())
+            del ref, got
+            t_k = median_ms(cuda_gemm.matmul, A, B)
+            t_p = median_ms(_matmul_t, A, B)
+            # the library product: fp32 (TF32 off) or bf16 with fp32 output
+            if dtype == torch.float32:
+                t_l = median_ms(torch.mm, A, B)
+            else:
+                t_l = median_ms(lambda a, b: torch.mm(
+                    a, b, out_dtype=torch.float32), A, B)
+            esize = A.element_size()
+            bound = _bound(2.0 * m * n * k,
+                           esize * (m * k + k * n) + 4.0 * m * n,
+                           FP32_FLOP_S if dtype == torch.float32
+                           else BF16_FLOP_S)
+            tflops = 2.0 * m * n * k / (t_k * 1e-3) / 1e12
+            name = str(dtype).replace("torch.", "")
+            print(f"K4 [{m}, {k}] @ [{k}, {n}] {name:8s}: max|diff| "
+                  f"{diff:.3e}, rel to max(|A|@|B|) {diff / scale:.3e} (gate "
+                  f"{K3_TOL:.0e}), kernel {t_k:.4f} ms ({tflops:.1f} "
+                  f"TFLOP/s), plain {t_p:.4f} ms, torch.mm {t_l:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]})")
+            if not diff <= K3_TOL * scale:
+                fail(f"K4 [{m}, {k}, {n}] {name}: kernel and plain disagree")
+            rows.append({"shape": (m, k, n), "dtype": name,
+                         "max_abs_err": diff, "ms": t_k, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": bound[0],
+                         "bound_by": bound[1]})
+            del A, B
+        del A32, B32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_rows():
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_scatter
+    from conflux_tpu_torch.ops.scatter import _gather_rows_t, _scatter_rows_t
+    from conflux_tpu_torch.timing import median_ms
+
+    g = torch.Generator(device="cuda").manual_seed(1400)
+    R32 = torch.randn(N, N, generator=g, device="cuda")
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        R = R32 if dtype == torch.float32 else R32.to(torch.bfloat16)
+        name = str(dtype).replace("torch.", "")
+        for kind, w in ROW_MOVES:
+            idx = torch.randperm(N, generator=g, device="cuda")[:w]
+            if kind == "gather":
+                ref = _gather_rows_t(R, idx)
+                got = cuda_scatter.gather_rows(R, idx)
+                torch.cuda.synchronize()
+                same = torch.equal(got, ref)
+                del ref, got
+                t_k = median_ms(cuda_scatter.gather_rows, R, idx)
+                t_p = median_ms(_gather_rows_t, R, idx)
+                t_l = median_ms(torch.index_select, R, 0, idx)
+            else:
+                src = torch.randn(w, N, generator=g, device="cuda").to(dtype)
+                ref = _scatter_rows_t(R.clone(), src, idx)
+                got = cuda_scatter.scatter_rows(R.clone(), src, idx)
+                torch.cuda.synchronize()
+                same = torch.equal(got, ref)
+                del ref, got
+                # repeated in place: the same rows get the same values
+                Rw = R.clone()
+                t_k = median_ms(cuda_scatter.scatter_rows, Rw, src, idx)
+                t_p = median_ms(_scatter_rows_t, Rw, src, idx)
+                t_l = median_ms(lambda r, s, i: r.index_copy_(0, i, s),
+                                Rw, src, idx)
+                del Rw, src
+            moved = 2.0 * w * N * R.element_size()
+            bound = _bound(0.0, moved + 8.0 * w, BF16_FLOP_S)
+            gbs = moved / (t_k * 1e-3) / 1e9
+            tag = f"K{5 if kind == 'scatter' else 6} {kind} {w} rows of " \
+                  f"[{N}, {N}] {name}"
+            print(f"{tag}: bit-exact {same}, kernel {t_k:.4f} ms "
+                  f"({gbs:.0f} GB/s), plain {t_p:.4f} ms, library "
+                  f"{t_l:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            if not same:
+                fail(f"{tag}: kernel and plain differ")
+            rows.append({"kind": kind, "rows": w, "dtype": name,
+                         "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": bound[0],
+                         "bound_by": bound[1]})
+            del idx
+        del R
+        torch.cuda.empty_cache()
+    del R32
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -309,11 +650,16 @@ def phase_small():
     g = torch.Generator(device="cuda").manual_seed(7)
     A = torch.randn(n, n, generator=g, device="cuda")
     b = torch.randn(n, generator=g, device="cuda")
-    for scheme in ("crout", "flat", "recursive"):
+    for scheme, compaction in (("crout", "gather"), ("crout", "split"),
+                               ("crout", "swap"), ("flat", "gather"),
+                               ("recursive", "gather")):
         for prec in ("high", "highest"):
-            F, perm = lu_factor(A, v=256, precision=prec, scheme=scheme)
+            F, perm = lu_factor(A, v=256, precision=prec, scheme=scheme,
+                                compaction=compaction)
             torch.cuda.synchronize()
             tag = f"LU {scheme} N={n} {prec}"
+            if compaction != "gather":
+                tag = f"LU {scheme} {compaction} N={n} {prec}"
             res = _check_factor(A, F, perm, tag)
             # an independent float64 host reconstruction as the reference
             dense = lu_residual_dense(A.cpu().numpy(), F.cpu().numpy(),
@@ -351,18 +697,26 @@ def phase_small():
             print(msg)
 
 
-def _reset_counts():
-    from conflux_tpu_torch.ops import cuda_gemm, cuda_panel
+def _counters():
+    """Each kernel's launch counter: (module, attribute) by kernel name."""
+    from conflux_tpu_torch.ops import cuda_gemm, cuda_panel, cuda_scatter
 
-    cuda_panel.LAUNCHES = 0
-    cuda_gemm.LAUNCHES = 0
+    return {"rank1_panel": (cuda_panel, "LAUNCHES"),
+            "schur_update": (cuda_gemm, "SCHUR_UPDATE_LAUNCHES"),
+            "sub_matmul_bigk": (cuda_gemm, "SUB_MATMUL_BIGK_LAUNCHES"),
+            "matmul": (cuda_gemm, "MATMUL_LAUNCHES"),
+            "scatter_rows": (cuda_scatter, "SCATTER_ROWS_LAUNCHES"),
+            "gather_rows": (cuda_scatter, "GATHER_ROWS_LAUNCHES")}
+
+
+def _reset_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def _counts():
-    from conflux_tpu_torch.ops import cuda_gemm, cuda_panel
-
-    return {"rank1_panel": cuda_panel.LAUNCHES,
-            "schur_update": cuda_gemm.LAUNCHES}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
 
 
 def _timed_path(fn, *args):
@@ -391,26 +745,30 @@ def _expect(per_run, want: dict, tag: str):
                  f"expected {n}")
 
 
-def phase_lu_path(smi: str, scheme: str):
+def phase_lu_path(smi: str, path: str):
+    """One LU path: 'crout' and 'flat' by scheme, 'swap' and 'split' as
+    crout's compactions."""
     import torch
 
     from conflux_tpu_torch.lu.single import lu_factor
 
+    scheme = "flat" if path == "flat" else "crout"
+    compaction = path if path in ("swap", "split") else "gather"
     g = torch.Generator(device="cuda").manual_seed(42)
     A = 5.0 + torch.rand(N, N, generator=g, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     times, per_run, (F, perm) = _timed_path(
-        lambda a: lu_factor(a, V, "high", scheme=scheme), A)
+        lambda a: lu_factor(a, V, "high", scheme=scheme,
+                            compaction=compaction), A)
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
-    want = ({"rank1_panel": K1_CROUT, "schur_update": 0} if scheme == "crout"
-            else {"rank1_panel": K1_FLAT, "schur_update": K3_FLAT})
-    _expect(per_run, want, f"{scheme} N={N}")
+    _expect(per_run, {k: PATH_LAUNCHES[path].get(k, 0) for k in KERNELS},
+            f"{path} N={N}")
     med = statistics.median(times)
-    res = _check_factor(A, F, perm, f"{scheme} N={N} high")
-    print(f"{scheme} path N={N} v={V} 'high' on {smi}: times ms "
+    res = _check_factor(A, F, perm, f"{path} N={N} high")
+    print(f"{path} path N={N} v={V} 'high' on {smi}: times ms "
           f"{[round(t, 3) for t in times]}, median {med:.3f} ms, "
           f"{2.0 / 3.0 * N ** 3 / (med * 1e-3) / 1e9:.1f} GFLOP/s, "
           f"peak memory {peak / 2 ** 30:.3f} GiB, launches per "
@@ -434,8 +792,8 @@ def phase_cholesky_path(smi: str):
     times, per_run, L = _timed_path(lambda a: cholesky(a, V, "high"), A)
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
-    _expect(per_run, {"rank1_panel": K1_CHOLESKY, "schur_update": 0},
-            f"Cholesky N={N}")
+    _expect(per_run, {k: PATH_LAUNCHES["cholesky"].get(k, 0)
+                      for k in KERNELS}, f"Cholesky N={N}")
     med = statistics.median(times)
     res = _check_cholesky(A, L, f"Cholesky N={N} high")
     print(f"Cholesky path N={N} v={V} 'high' on {smi}: times ms "
@@ -447,51 +805,75 @@ def phase_cholesky_path(smi: str):
     return counts
 
 
+def _pick(table, **want):
+    return next(r for r in table if all(r[k] == v for k, v in want.items()))
+
+
 def main() -> int:
     smi = phase_device()
     import torch
 
     phase_build()
     k1_rows = phase_k1()
-    k3_rows = phase_k3()
+    medium_bf16 = phase_medium_probe()
+    k3_rows = phase_k3(medium_bf16)
+    k2_rows = phase_k2(medium_bf16)
+    _reset_counts()
+    k4_rows = phase_k4()
+    k4_launches = _counts()["matmul"]
+    k56_rows = phase_rows()
     phase_small()
     by_path = {"crout": phase_lu_path(smi, "crout"),
                "flat": phase_lu_path(smi, "flat"),
-               "cholesky": phase_cholesky_path(smi)}
+               "cholesky": phase_cholesky_path(smi),
+               "swap": phase_lu_path(smi, "swap"),
+               "split": phase_lu_path(smi, "split")}
     launches = {name: sum(c[name] for c in by_path.values())
-                for name in ("rank1_panel", "schur_update")}
+                for name in KERNELS}
     for name, n in launches.items():
-        if n == 0:
+        # K4 is exempt: no path of the JAX package calls matmul_pallas
+        if n == 0 and name != "matmul":
             fail(f"{name} was never launched on the main paths")
+    launches["matmul"] = k4_launches
     if "jax" in sys.modules:
         fail("jax was imported")
-    # each kernel's row at its main-path shape and mode
-    k1 = next(r for r in k1_rows
-              if r["shape"] == PANEL_SHAPES[0] and r["mode"] == "finish")
-    k3 = next(r for r in k3_rows
-              if r["shape"] == "first" and r["mode"] == "high")
-    print(json.dumps({"kernels": [{
-        "name": "rank1_panel",
-        "route": "cuda",
-        "source": "conflux_tpu_torch/csrc/rank1_panel.cu",
-        "replaces": "conflux_tpu/ops/pallas_panel.py:83",
-        "launches": launches["rank1_panel"],
-        "launches_by_path": {p: c["rank1_panel"] for p, c in by_path.items()},
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }, {
-        "name": "schur_update",
-        "route": "cuda",
-        "source": "conflux_tpu_torch/csrc/schur_update.cu",
-        "replaces": "conflux_tpu/ops/pallas_gemm.py:95",
-        "launches": launches["schur_update"],
-        "launches_by_path": {p: c["schur_update"]
-                             for p, c in by_path.items()},
-        "max_abs_err": k3["max_abs_err"],
-        "ms": k3["ms"],
-        "plain_ms": k3["plain_ms"],
-    }]}))
+    # each kernel's row at its representative main-path shape and mode
+    picks = {
+        "rank1_panel": ("conflux_tpu_torch/csrc/rank1_panel.cu",
+                        "conflux_tpu/ops/pallas_panel.py:83",
+                        _pick(k1_rows, shape=PANEL_SHAPES[0], mode="finish")),
+        "schur_update": ("conflux_tpu_torch/csrc/schur_update.cu",
+                         "conflux_tpu/ops/pallas_gemm.py:95",
+                         _pick(k3_rows, shape="first", mode="high")),
+        "sub_matmul_bigk": ("conflux_tpu_torch/csrc/bigk_gemm.cu",
+                            "conflux_tpu/ops/pallas_gemm.py:151",
+                            _pick(k2_rows, shape=K2_SHAPES[0][0],
+                                  mode="high")),
+        "matmul": ("conflux_tpu_torch/csrc/bigk_gemm.cu",
+                   "conflux_tpu/ops/pallas_gemm.py:30",
+                   _pick(k4_rows, shape=K4_SHAPES[0], dtype="float32")),
+        "scatter_rows": ("conflux_tpu_torch/csrc/row_move.cu",
+                         "conflux_tpu/ops/pallas_scatter.py:42",
+                         _pick(k56_rows, kind="scatter", dtype="float32")),
+        "gather_rows": ("conflux_tpu_torch/csrc/row_move.cu",
+                        "conflux_tpu/ops/pallas_scatter.py:114",
+                        _pick(k56_rows, kind="gather", rows=V,
+                              dtype="float32")),
+    }
+    kernels = []
+    for name in KERNELS:
+        source, replaces, row = picks[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "launches_by_path": {p: c[name] for p, c in by_path.items()}}
+        if name == "matmul":
+            entry["launches_from"] = ("its own phase: no path of the JAX "
+                                      "package calls matmul_pallas")
+        entry.update({k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")})
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,17 @@ H100.
 The JAX package `conflux_tpu` stays the reference; this package has its
 module layout and function names, and imports torch, numpy and the
 standard library only. So far it holds the single-device LU with partial
-pivoting in its crout, flat and recursive schemes (`lu.single`), the
-single-device Cholesky (`cholesky.single`), the solves (`solve`), the
-panel factorization (`ops.panel`, with the rank-1 block kernel K1 in
-CUDA, `ops.cuda_panel`), the fused trailing update (`ops.gemm`, with K3
-in CUDA, `ops.cuda_gemm`), the triangular layer (`ops.tri`) and the
-residual gates (`validation`).
+pivoting in its crout (with the 'gather', 'split' and 'swap'
+compactions), flat and recursive schemes (`lu.single`), the single-device
+Cholesky (`cholesky.single`), the solves (`solve`), the panel
+factorization (`ops.panel`), the matrix-product kernels (`ops.gemm`), the
+row movement (`ops.scatter`), the triangular layer (`ops.tri`) and the
+residual gates (`validation`). Each kernel the JAX package wrote in Pallas
+is hand-written CUDA here, bound through ctypes: K1, the rank-1 panel
+block (`ops.cuda_panel`); K3, the fused trailing update, K2, the big-K
+R - A @ B, and K4, the plain GEMM (`ops.cuda_gemm`); K5 and K6, the row
+scatter and gather (`ops.cuda_scatter`). CPU tensors take their plain
+PyTorch versions.
 """
 
 __version__ = "0.1.0"

@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 
-def from_numpy(A, device="cpu") -> torch.Tensor:
-    """numpy (or anything array-like) -> float32 tensor on `device`."""
+def from_numpy(A, device="cuda") -> torch.Tensor:
+    """numpy (or anything array-like) -> float32 tensor on `device`: the
+    card unless the caller asks for the CPU. Without a card the default
+    raises torch's own error; nothing falls back to the CPU."""
     return torch.as_tensor(np.asarray(A, np.float32), device=device)
 
 

@@ -13,6 +13,15 @@ PyTorch counterpart of `conflux_tpu/lu/single.py`. Three schemes:
     into the factor and the live rows compact, every `partition` steps.
   * recursive: balanced panel splitting with solve_triangular TRSMs.
 
+crout keeps its live rows contiguous by one of three compactions:
+'gather' (the default: re-gather the live rows into a fresh buffer),
+'split' (the raw matrix never moves; only the multipliers compact) and
+'swap' (the live rows stay a prefix of one full-size buffer, refilled by a
+w-row push-up each step). On the card 'split' and 'swap' run their big-K
+products through K2 (ops/gemm.sub_matmul_bigk), their row gathers through
+K6 and swap's push-up through K5 (ops/scatter); 'gather' keeps the library
+product and torch indexing, the JAX package's routing.
+
 Pivoting lives in the v-wide panel only (masked argmax) and creates no
 data-dependent shape, so the step loops never wait for the device.
 """
@@ -22,12 +31,13 @@ from __future__ import annotations
 import torch
 
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
-from conflux_tpu_torch.ops.gemm import schur_update
+from conflux_tpu_torch.ops.gemm import schur_update, sub_matmul_bigk
 from conflux_tpu_torch.ops.panel import (
     factor_panel,
     factor_panel_raw,
     select_pivots,
 )
+from conflux_tpu_torch.ops.scatter import gather_rows, scatter_rows
 from conflux_tpu_torch.ops.tri import (
     schur_dot,
     trsm_left_lower_unit,
@@ -208,6 +218,161 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
     return F, perm
 
 
+def _sub_dot(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             precision: str) -> torch.Tensor:
+    """R - A @ B as a new tensor: IEEE fp32 `torch.mm` at 'highest', else
+    K2 in the precision's mode (R is float32 here, so 'bf16out' is the
+    kernel's 'bf16' pass, as on the flat path)."""
+    if precision == "highest":
+        return R - torch.mm(A, B)
+    return sub_matmul_bigk(R, A, B,
+                           "bf16" if precision == "bf16out" else precision)
+
+
+def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
+    """Crout LU with 'split' compaction. A crout R's trailing columns are
+    never written (they hold raw values until their panel or pivot step),
+    so the raw matrix T = A stays where it is, never written or moved, and
+    only the live rows' multipliers compact:
+
+      * origin [m_live]: the T row behind each live slot (ascending);
+      * Lbuf [m_live, k]: the live rows' multiplier columns, compacted
+        every step (the only state that moves);
+      * each panel is one [m_live, w] gather of T's column slice, updated
+        by one big-K product against Lbuf; the pivot rows' trailing raw
+        values are one [w, n-k-w] gather of T.
+
+    Pivot for pivot the same as 'gather' at partition=1: every product and
+    panel operand holds the same values in the same row order. `partition`
+    does not apply (Lbuf compacts every step)."""
+    m, n = A.shape
+    dev = A.device
+    T = A
+    origin = torch.arange(m, device=dev)
+    everyone = torch.ones(m, dtype=torch.bool, device=dev)
+    Lbuf = None                    # [m_live, k] multipliers
+    F = torch.zeros((m, n), dtype=A.dtype, device=dev)
+    perm = torch.zeros(m, dtype=torch.int64, device=dev)
+    for k in range(0, n, v):
+        w = min(v, n - k)
+        m_live = m - k
+        panel = gather_rows(T[:, k:k + w], origin)             # [m_live, w]
+        if k > 0:
+            panel = _sub_dot(panel, Lbuf, F[:k, k:k + w], precision)
+        piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
+        lu_top = gather_rows(M, piv)                           # [w, w]
+        F[k:k + w, k:k + w] = lu_top
+        if k > 0:
+            Lpiv = gather_rows(Lbuf, piv)                      # [w, k]
+            F[k:k + w, :k] = Lpiv
+        if k + w < n:
+            rhs = gather_rows(T[:, k + w:], origin[piv])       # [w, n-k-w]
+            if k > 0:
+                rhs = _sub_dot(rhs, Lpiv, F[:k, k + w:], precision)
+            F[k:k + w, k + w:] = trsm_left_lower_unit(
+                unit_lower(lu_top), rhs, method="invert")
+        perm[k:k + w] = origin[piv]
+        if m_live > w:
+            # sorted live rows without a host sync: pivot rows sort last
+            keep = torch.ones(m_live, dtype=torch.bool, device=dev)
+            keep[piv] = False
+            rows = torch.arange(m_live, device=dev)
+            live_idx = torch.sort(torch.where(keep, rows, m_live)).values[
+                :m_live - w]
+            Mlive = gather_rows(M, live_idx)                   # newborn
+            Lbuf = (Mlive if Lbuf is None else
+                    torch.cat([gather_rows(Lbuf, live_idx), Mlive], dim=1))
+            origin = origin[live_idx]
+    if m > n:
+        # tail: never-pivoted rows hold completed L rows (all n multiplier
+        # columns live in Lbuf), original relative order
+        F[n:] = Lbuf
+        perm[n:] = origin
+    return F, perm
+
+
+def _pushup_pairs(piv: torch.Tensor, m_live2: int, w: int):
+    """(src, dst) rows of one push-up of the 'swap' compaction: the tail
+    segment [m_live2, m_live2 + w) leaves the live prefix, and its
+    non-pivot (still live) rows move into the pivot slots vacated inside
+    the kept prefix [0, m_live2). The counts match (w tail positions =
+    pivots in the tail + movers; w pivots = pivots in the tail + slots in
+    the prefix), and both lists are ascending, so the real pairs line up
+    position by position, as in the JAX code.
+
+    The JAX code pads both lists with a sentinel and drops the padded
+    pairs in its scatter; K5 has no drop. The padded positions, one per
+    pivot in the tail, are paired instead with those tail pivot rows as
+    self-writes. The rows are dead and outside the kept prefix, so they
+    are distinct from every real slot, and dst stays unique without a host
+    sync."""
+    dev = piv.device
+    end = m_live2 + w              # sorts after every row of the segment
+    tail = m_live2 + torch.arange(w, device=dev)
+    in_piv = (tail[:, None] == piv[None, :]).any(dim=1)
+    movers = torch.sort(torch.where(in_piv, end, tail)).values
+    slots = torch.sort(torch.where(piv < m_live2, piv, end)).values
+    # this step's pivots in the tail, ascending, in the last positions
+    tail_piv = torch.sort(torch.where(piv >= m_live2, piv, -1)).values
+    return (torch.where(movers < end, movers, tail_piv),
+            torch.where(slots < end, slots, tail_piv))
+
+
+def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
+    """Crout LU with 'swap' (push-up) compaction. R is one full-size
+    [m, n] copy of A whose live rows form a PREFIX of length m - k (a
+    Python int per step, so every slice is static); each step moves the
+    <= w live rows parked in the outgoing tail segment into the pivot
+    slots of the kept prefix (`_pushup_pairs`: one w-row gather into a
+    fresh buffer, then one w-row scatter, so no row is read after it is
+    overwritten): the static-shape form of the reference's
+    first_non_pivot_row push-up, instead of re-gathering the whole live
+    region. Row order inside the prefix differs from 'gather', so fp-tie
+    pivots may legally differ. `partition` does not apply (the frontier
+    shrinks every step). A is not modified: the scatter writes R in
+    place, and R starts as one copy of A."""
+    m, n = A.shape
+    dev = A.device
+    R = A.clone()
+    origin = torch.arange(m, device=dev)
+    everyone = torch.ones(m, dtype=torch.bool, device=dev)
+    F = torch.zeros((m, n), dtype=A.dtype, device=dev)
+    perm = torch.zeros(m, dtype=torch.int64, device=dev)
+    for k in range(0, n, v):
+        w = min(v, n - k)
+        m_live = m - k
+        panel = R[:m_live, k:k + w]
+        if k > 0:
+            panel = _sub_dot(panel, R[:m_live, :k], F[:k, k:k + w],
+                             precision)
+        piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
+        lu_top = gather_rows(M, piv)                           # [w, w]
+        R[:m_live, k:k + w] = M
+        # the winners' full factor row [L_piv | lu_top | U12], as 'gather'
+        Rpiv = gather_rows(R, piv)                             # [w, n]
+        if k > 0:
+            F[k:k + w, :k] = Rpiv[:, :k]
+        F[k:k + w, k:k + w] = lu_top
+        if k + w < n:
+            rhs = Rpiv[:, k + w:]
+            if k > 0:
+                rhs = _sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], precision)
+            F[k:k + w, k + w:] = trsm_left_lower_unit(
+                unit_lower(lu_top), rhs, method="invert")
+        perm[k:k + w] = origin[piv]
+        m_live2 = m_live - w
+        if m_live2 > 0:            # the last square step keeps no prefix
+            src, dst = _pushup_pairs(piv, m_live2, w)
+            scatter_rows(R, gather_rows(R, src), dst)
+            origin[dst] = origin[src]
+    if m > n:
+        # the live prefix holds completed L rows; their origin order is
+        # not the input order after the swaps, which perm records
+        F[n:] = R[:m - n]
+        perm[n:] = origin[:m - n]
+    return F, perm
+
+
 def _getrf_base(A: torch.Tensor, n: int):
     """Base case of the recursive scheme: [m, n] tall panel, n <= v.
     Returns (F, perm) with A[perm] = unit_lower(F) @ upper(F) and the n
@@ -263,8 +428,10 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
     scheme: 'crout', 'flat' or 'recursive'. 'auto' runs crout: the JAX
     package's auto_scheme threshold (recursive below N=16384) was measured
     on a TPU, and the port keeps crout until the card's own numbers say
-    otherwise. partition (flat, crout): band / compaction cadence in steps
-    (1 = every step, 0 = only at the end). A is never modified."""
+    otherwise. partition (flat, crout 'gather'): band / compaction cadence
+    in steps (1 = every step, 0 = only at the end). compaction (crout
+    only): 'gather', 'split' or 'swap' (see the module docstring). A is
+    never modified."""
     m, n = A.shape
     if m < n:
         raise ConfluxError(ErrorCode.INVALID_SHAPE, "lu_factor expects m >= n")
@@ -276,14 +443,17 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
     if scheme not in ("auto", "crout", "flat", "recursive"):
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            f"unknown scheme {scheme!r}")
-    if compaction != "gather":
-        raise ConfluxError(
-            ErrorCode.INVALID_SHAPE,
-            f"compaction {compaction!r} is not ported yet (ROADMAP item 6)")
+    if compaction not in ("gather", "split", "swap"):
+        raise ConfluxError(ErrorCode.INVALID_SHAPE,
+                           f"unknown compaction {compaction!r}")
     if scheme == "flat":
         return _getrf_flat(A, v, precision, partition=partition)
     if scheme == "recursive":
         return _getrf_rec(A, v, precision)
+    if compaction == "split":
+        return _getrf_crout_split(A, v, precision)
+    if compaction == "swap":
+        return _getrf_crout_swap(A, v, precision)
     return _getrf_crout(A, v, precision, partition=partition)
 
 

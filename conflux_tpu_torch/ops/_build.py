@@ -1,10 +1,11 @@
 """Build the package's CUDA sources into shared libraries at first use.
 
-Each kernel is one `csrc/<name>.cu` with a plain C interface, compiled by
+Each library is one `csrc/<name>.cu` with a plain C interface, compiled by
 `nvcc` for Hopper (`sm_90a`) into `_build/lib<name>-<hash>.so` inside the
-package and loaded with `ctypes`. The hash covers that kernel's own source
-and the compiler flags, so an edited source builds anew, an unchanged one
-loads the library already built, and editing one kernel leaves the others'
+package and loaded with `ctypes`. The hash covers that source, the
+`csrc/` headers it includes (`#include "x.cuh"`) and the compiler flags,
+so an edited source or header builds anew, an unchanged one loads the
+library already built, and editing one kernel leaves the others'
 libraries valid. Nothing here runs when the module is imported: the
 CPU-only test environment has no `nvcc`.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,10 +41,18 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
 def _digest(name: str) -> str:
-    """Hash of the flags and `csrc/<name>.cu`, and of nothing else."""
+    """Hash of the flags, `csrc/<name>.cu` and the `csrc/` headers it
+    includes by name, and of nothing else."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    h.update((_CSRC / f"{name}.cu").read_bytes())
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    h.update(src)
+    for header in sorted(set(_INCLUDE.findall(src))):
+        h.update(header)
+        h.update((_CSRC / header.decode()).read_bytes())
     return h.hexdigest()[:16]
 
 

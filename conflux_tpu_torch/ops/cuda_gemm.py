@@ -1,14 +1,19 @@
-"""K3 on Hopper: the fused trailing update, by hand in CUDA C++.
+"""K3, K2 and K4 on Hopper: the matrix-product kernels, by hand in CUDA C++.
 
-Counterpart of `conflux_tpu/ops/pallas_gemm.py` (`schur_update_pallas`,
-kernels `_acc_kernel` and `_acc_kernel_x3`). The kernel is
-`csrc/schur_update.cu`, built by `nvcc` for `sm_90a` at first use
-(ops/_build.py) and called through ctypes on PyTorch's current stream. Its
-source note says what bounds it on the H100 and what the design does about
+Counterpart of `conflux_tpu/ops/pallas_gemm.py`:
+  * K3, `schur_update` (`schur_update_pallas`, kernels `_acc_kernel` and
+    `_acc_kernel_x3`): csrc/schur_update.cu;
+  * K2, `sub_matmul_bigk` (`sub_matmul_pallas_bigk`, kernels
+    `_acc_bigk_kernel` and `_acc_bigk_kernel_x3`): csrc/bigk_gemm.cu;
+  * K4, `matmul` (`matmul_pallas`, kernel `_mm_kernel`): csrc/bigk_gemm.cu.
+Each source is built by `nvcc` for `sm_90a` at first use (ops/_build.py)
+and called through ctypes on PyTorch's current stream. The source notes
+say what bounds each kernel on the H100 and what its design does about
 that.
 
-Its plain PyTorch version is `ops/gemm._schur_update_t`; `ops/gemm
-.schur_update` sends CPU tensors there and CUDA tensors here.
+Their plain PyTorch versions are `ops/gemm._schur_update_t`,
+`_sub_matmul_bigk_t` and `_matmul_t`; the dispatchers in `ops/gemm` send
+CPU tensors there and CUDA tensors here.
 """
 
 from __future__ import annotations
@@ -18,12 +23,16 @@ import ctypes
 import torch
 
 from conflux_tpu_torch.ops import _build
-from conflux_tpu_torch.ops.gemm import check_mode
+from conflux_tpu_torch.ops.gemm import check_matmul, check_mode
 
-# launches of the kernel in this process; chip_smoke.py resets and reads it
-LAUNCHES = 0
+# launches of each kernel in this process, one per wrapper call that
+# launches it; chip_smoke.py resets and reads them
+SCHUR_UPDATE_LAUNCHES = 0       # K3
+SUB_MATMUL_BIGK_LAUNCHES = 0    # K2 (its split-K sum included)
+MATMUL_LAUNCHES = 0             # K4
 
 _lib = None
+_bigk_lib = None
 
 
 def _load() -> ctypes.CDLL:
@@ -42,6 +51,41 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def _load_bigk() -> ctypes.CDLL:
+    global _bigk_lib
+    if _bigk_lib is None:
+        lib = _build.load("bigk_gemm")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.conflux_sub_matmul_bigk.argtypes = [p, i, p, i, i, p, i, p, i,
+                                                i, i, i, i, p, ll, p]
+        lib.conflux_sub_matmul_bigk.restype = i
+        lib.conflux_sub_matmul_bigk_workspace_floats.argtypes = [i, i, i]
+        lib.conflux_sub_matmul_bigk_workspace_floats.restype = ll
+        lib.conflux_sub_matmul_bigk_splits.argtypes = [i, i, i]
+        lib.conflux_sub_matmul_bigk_splits.restype = i
+        lib.conflux_sub_matmul_bigk_smem_bytes.argtypes = []
+        lib.conflux_sub_matmul_bigk_smem_bytes.restype = i
+        lib.conflux_matmul.argtypes = [p, i, p, i, p, i, i, i, i, i, p]
+        lib.conflux_matmul.restype = i
+        lib.conflux_bigk_gemm_error_string.argtypes = [i]
+        lib.conflux_bigk_gemm_error_string.restype = ctypes.c_char_p
+        _bigk_lib = lib
+    return _bigk_lib
+
+
+def _check_2d(name: str, t: torch.Tensor, dev: torch.device):
+    """A 2-D CUDA tensor on `dev` with unit column stride and a row stride
+    that fits an int."""
+    if not t.is_cuda or t.device != dev:
+        raise ValueError(f"{name} must be a CUDA tensor on {dev}")
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, not {tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} needs unit column stride")
+    if t.stride(0) >= 2 ** 31:
+        raise ValueError(f"{name}'s row stride does not fit an int")
+
+
 def schur_update(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor, c0: int,
                  mode: str, c1: int | None = None) -> torch.Tensor:
     """R[:, c0:c1] -= A @ B on the card, in place; returns R.
@@ -49,7 +93,7 @@ def schur_update(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor, c0: int,
     R [m, ncols] float32 ('high', 'bf16') or bfloat16 ('bf16out'),
     A [m, k] and B [k, c1 - c0] float32, all on one CUDA device with unit
     column stride (any row stride). An empty update launches nothing."""
-    global LAUNCHES
+    global SCHUR_UPDATE_LAUNCHES
     passes = check_mode(R, mode)
     if not (R.is_cuda and A.device == R.device and B.device == R.device):
         raise ValueError("schur_update takes CUDA tensors on one device")
@@ -67,10 +111,7 @@ def schur_update(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor, c0: int,
                          f"B {tuple(B.shape)} do not fit the span "
                          f"[{c0}, {c1})")
     for name, t in (("R", R), ("A", A), ("B", B)):
-        if t.shape[1] > 1 and t.stride(1) != 1:
-            raise ValueError(f"{name} needs unit column stride")
-        if t.stride(0) >= 2 ** 31:
-            raise ValueError(f"{name}'s row stride does not fit an int")
+        _check_2d(name, t, R.device)
     if m == 0 or k == 0 or c1 == c0:
         return R
     lib = _load()
@@ -85,5 +126,90 @@ def schur_update(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor, c0: int,
         raise RuntimeError("schur_update launch failed: "
                            + lib.conflux_schur_update_error_string(err)
                            .decode())
-    LAUNCHES += 1
+    SCHUR_UPDATE_LAUNCHES += 1
     return R
+
+
+def sub_matmul_bigk_splits(m: int, n: int, k: int) -> int:
+    """How many K splits K2 takes for an [m, n] output and depth k on the
+    current card (1: no split-K, no workspace)."""
+    return _load_bigk().conflux_sub_matmul_bigk_splits(m, n, k)
+
+
+def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                    mode: str) -> torch.Tensor:
+    """R - A @ B on the card, as a new tensor of R's dtype; R is read only.
+
+    R [m, n] float32 ('high', 'bf16') or bfloat16 ('bf16out'), A [m, k]
+    and B [k, n] float32, all on one CUDA device with unit column stride
+    (any row stride). With k = 0 the result is a copy of R and nothing is
+    launched."""
+    global SUB_MATMUL_BIGK_LAUNCHES
+    passes = check_mode(R, mode)
+    if A.dtype != torch.float32 or B.dtype != torch.float32:
+        raise TypeError(f"A and B must be float32, not {A.dtype}, {B.dtype}")
+    for name, t in (("R", R), ("A", A), ("B", B)):
+        _check_2d(name, t, R.device)
+    m, n = R.shape
+    k = A.shape[1]
+    if tuple(A.shape) != (m, k) or tuple(B.shape) != (k, n):
+        raise ValueError(f"shapes R {tuple(R.shape)}, A {tuple(A.shape)}, "
+                         f"B {tuple(B.shape)} do not fit R - A @ B")
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError("a dimension does not fit an int")
+    out = torch.empty((m, n), dtype=R.dtype, device=R.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.copy_(R)
+    lib = _load_bigk()
+    with torch.cuda.device(R.device):
+        # split-K's partial products; freed into the caching allocator
+        # after the launch, which orders its reuse on this stream
+        ws_floats = lib.conflux_sub_matmul_bigk_workspace_floats(m, n, k)
+        ws = (torch.empty(ws_floats, dtype=torch.float32, device=R.device)
+              if ws_floats else None)
+        stream = torch.cuda.current_stream(R.device).cuda_stream
+        err = lib.conflux_sub_matmul_bigk(
+            R.data_ptr(), R.stride(0), out.data_ptr(), out.stride(0),
+            int(mode == "bf16out"), A.data_ptr(), A.stride(0),
+            B.data_ptr(), B.stride(0), m, n, k, passes,
+            None if ws is None else ws.data_ptr(), ws_floats, stream)
+    if err != 0:
+        raise RuntimeError("sub_matmul_bigk launch failed: "
+                           + lib.conflux_bigk_gemm_error_string(err)
+                           .decode())
+    SUB_MATMUL_BIGK_LAUNCHES += 1
+    return out
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = a @ b on the card with a float32 result: a [m, k] and b [k, n]
+    both float32 (IEEE fp32 FMA products) or both bfloat16 (tensor cores,
+    fp32 accumulation), on one CUDA device with unit column stride (any
+    row stride). With k = 0 the result is zeros and nothing is
+    launched."""
+    global MATMUL_LAUNCHES
+    check_matmul(a, b)
+    _check_2d("a", a, a.device)
+    _check_2d("b", b, a.device)
+    m, k = a.shape
+    n = b.shape[1]
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError("a dimension does not fit an int")
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = _load_bigk()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.conflux_matmul(
+            a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+            c.data_ptr(), c.stride(0), m, n, k,
+            int(a.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError("matmul launch failed: "
+                           + lib.conflux_bigk_gemm_error_string(err)
+                           .decode())
+    MATMUL_LAUNCHES += 1
+    return c

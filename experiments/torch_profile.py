@@ -3,7 +3,9 @@
 
     python3 -m experiments.torch_profile --scheme flat
 
-At N=32768, v=1536, 'high' (chip_smoke.py's paths and inputs), runs one
+`--scheme` is crout, flat, recursive, cholesky, or swap or split (crout
+with that compaction). At N=32768, v=1536, 'high' (chip_smoke.py's paths
+and inputs), runs one
 warm-up, then times REPS unprofiled runs with CUDA events, then
 profiles one more run with torch.profiler and sums the self device time of
 the `DeviceType.CUDA` rows of `key_averages()` by kernel group (the
@@ -27,6 +29,10 @@ REPS = 2
 # kernel-name substrings, first match wins
 GROUPS = (
     ("K3 schur_update_kernel", ("schur_update_kernel",)),
+    ("K2 sub_matmul_bigk (+ split-K sum)", ("sub_matmul_bigk_kernel",
+                                            "bigk_reduce_kernel")),
+    ("K5 scatter_rows_kernel", ("scatter_rows_kernel",)),
+    ("K6 gather_rows_kernel", ("gather_rows_kernel",)),
     ("K1 rank1_panel_kernel", ("rank1_panel_kernel",)),
     ("bf16 GEMMs (cuBLAS nvjet)", ("nvjet", "bf16", "s16816gemm")),
     ("fp32 GEMMs (cuBLAS, cutlass)", ("gemm", "sgemm", "xmma", "cutlass",
@@ -49,7 +55,8 @@ def _group(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scheme", default="flat",
-                    choices=["crout", "flat", "recursive", "cholesky"])
+                    choices=["crout", "flat", "recursive", "cholesky",
+                             "swap", "split"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
@@ -69,9 +76,13 @@ def main():
             return cholesky(A, V, PRECISION)
     else:
         A = 5.0 + torch.rand(n, n, generator=g, device="cuda")
+        compact = args.scheme in ("swap", "split")
+        scheme = "crout" if compact else args.scheme
+        compaction = args.scheme if compact else "gather"
 
         def run():
-            return lu_factor(A, V, PRECISION, scheme=args.scheme)
+            return lu_factor(A, V, PRECISION, scheme=scheme,
+                             compaction=compaction)
 
     run()
     torch.cuda.synchronize()

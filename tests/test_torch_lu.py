@@ -12,8 +12,10 @@ explicit bf16x3 split while the JAX CPU backend does not split, so only
 the reference's gate ||PA - LU|| / (N ||A||) <= 1e-6 is required of both;
 how many pivots agree is reported.
 
-The flat and recursive schemes are held the same way at 'highest'
-(identical perms, F within 2e-5 of max|F|). At 'high' the port's flat path
+The flat and recursive schemes, and crout's 'split' and 'swap'
+compactions, are held the same way at 'highest' (identical perms, F within
+2e-5 of max|F|). 'split' moves the same values in the same row order as
+'gather', so on the CPU the two are held to each other bit for bit. At 'high' the port's flat path
 runs K3's plain version and the JAX flat path is run through its Pallas K3
 in interpret mode (its CPU gate bypassed, as tests/test_single_device.py
 does); both take the same split operands, and each must meet a residual
@@ -34,6 +36,7 @@ import conflux_tpu_torch
 from conflux_tpu_torch import interop, validation
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
 from conflux_tpu_torch.lu import single as tsingle
+from conflux_tpu_torch.ops.scatter import gather_rows, scatter_rows
 
 GATE = 1e-6
 CASES = [(128, 128, 32, 1), (160, 96, 32, 2), (140, 140, 32, 0)]
@@ -43,8 +46,8 @@ SCHEME_SHAPES = [(m, n) for m, n, _, _ in CASES] + [(200, 120)]
 def _both(A, v, precision, partition):
     Fj, pj = jsingle.lu_factor(jnp.asarray(A), v=v, precision=precision,
                                scheme="crout", partition=partition)
-    Ft, pt = tsingle.lu_factor(interop.from_numpy(A), v=v,
-                               precision=precision, scheme="crout",
+    Ft, pt = tsingle.lu_factor(interop.from_numpy(A, device="cpu"),
+                               v=v, precision=precision, scheme="crout",
                                partition=partition)
     Ft, pt = interop.factors_to_numpy(Ft, pt)
     return (np.asarray(Fj), np.asarray(pj)), (Ft, pt)
@@ -93,7 +96,7 @@ def test_flat_highest_matches_jax(rng, m, n, partition):
     A = rng.standard_normal((m, n)).astype(np.float32)
     Fj, pj = jsingle.lu_factor(jnp.asarray(A), v=32, precision="highest",
                                scheme="flat", partition=partition)
-    Ft, pt = tsingle.lu_factor(interop.from_numpy(A), v=32,
+    Ft, pt = tsingle.lu_factor(interop.from_numpy(A, device="cpu"), v=32,
                                precision="highest", scheme="flat",
                                partition=partition)
     Ft, pt = interop.factors_to_numpy(Ft, pt)
@@ -114,7 +117,7 @@ def test_recursive_highest_matches_jax(rng, m, n):
     A = rng.standard_normal((m, n)).astype(np.float32)
     Fj, pj = jsingle.lu_factor(jnp.asarray(A), v=32, precision="highest",
                                scheme="recursive")
-    Ft, pt = tsingle.lu_factor(interop.from_numpy(A), v=32,
+    Ft, pt = tsingle.lu_factor(interop.from_numpy(A, device="cpu"), v=32,
                                precision="highest", scheme="recursive")
     Ft, pt = interop.factors_to_numpy(Ft, pt)
     Fj, pj = np.asarray(Fj), np.asarray(pj)
@@ -156,8 +159,8 @@ def test_flat_high_matches_jax_through_pallas_k3(rng, monkeypatch):
     finally:
         jax.clear_caches()
     assert calls == [v]               # one fused update, at c0 = v
-    Ft, pt = tsingle.lu_factor(interop.from_numpy(A), v=v, precision="high",
-                               scheme="flat")
+    Ft, pt = tsingle.lu_factor(interop.from_numpy(A, device="cpu"), v=v,
+                               precision="high", scheme="flat")
     Ft, pt = interop.factors_to_numpy(Ft, pt)
     res_j = jvalidation.lu_residual_dense(A, Fj, pj)
     res_t = validation.lu_residual_dense(A, Ft, pt)
@@ -176,6 +179,119 @@ def test_other_schemes_leave_input_unchanged(rng, scheme, partition):
     F, perm = tsingle.lu_factor(A, v=32, scheme=scheme, partition=partition)
     assert torch.equal(A, A0)
     assert validation.lu_residual_dense(A0, F, perm) <= GATE
+
+
+# tests/test_single_device.py's shapes of the two compactions (m, n, v)
+COMPACTION_SHAPES = [(128, 128, 32), (160, 96, 32), (150, 130, 32),
+                     (128, 128, 128)]
+
+
+def _crout(A, v, precision, compaction):
+    """The same numpy A through both packages' crout with `compaction`;
+    returns ((Fj, pj), (Ft, pt)) as numpy arrays."""
+    Fj, pj = jsingle.lu_factor(jnp.asarray(A), v=v, precision=precision,
+                               scheme="crout", compaction=compaction)
+    Ft, pt = tsingle.lu_factor(interop.from_numpy(A, device="cpu"), v=v,
+                               precision=precision, scheme="crout",
+                               compaction=compaction)
+    return ((np.asarray(Fj), np.asarray(pj)),
+            interop.factors_to_numpy(Ft, pt))
+
+
+@pytest.mark.parametrize("compaction", ["split", "swap"])
+@pytest.mark.parametrize("m,n,v", COMPACTION_SHAPES)
+def test_crout_compaction_highest_matches_jax(rng, m, n, v, compaction):
+    A = rng.standard_normal((m, n)).astype(np.float32)
+    (Fj, pj), (Ft, pt) = _crout(A, v, "highest", compaction)
+    assert Ft.shape == (m, n) and pt.dtype == np.int64
+    np.testing.assert_array_equal(pt, pj)
+    assert np.abs(Ft - Fj).max() / np.abs(Fj).max() <= 2e-5
+    assert validation.lu_residual_dense(A, Ft, pt) <= GATE
+
+
+@pytest.mark.parametrize("compaction", ["split", "swap"])
+@pytest.mark.parametrize("m,n,v", COMPACTION_SHAPES)
+def test_crout_compaction_high_meets_gate(rng, m, n, v, compaction):
+    A = rng.standard_normal((m, n)).astype(np.float32)
+    (Fj, pj), (Ft, pt) = _crout(A, v, "high", compaction)
+    res_j = jvalidation.lu_residual_dense(A, Fj, pj)
+    res_t = validation.lu_residual_dense(A, Ft, pt)
+    print(f"[{m}x{n} v={v} {compaction}] perm agreement "
+          f"{np.mean(pt == pj):.3f}, residual jax {res_j:.2e} port "
+          f"{res_t:.2e}")
+    assert res_j <= GATE and res_t <= GATE
+    assert np.array_equal(np.sort(pt), np.arange(m))
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("m,n,v", COMPACTION_SHAPES)
+def test_crout_split_equals_gather(rng, m, n, v, precision):
+    # every product and panel operand of 'split' holds the values of
+    # 'gather' in the same row order; only the operands' leading dimension
+    # differs (a contiguous Lbuf against a strided slice of R), which the
+    # CPU BLAS may or may not sum alike
+    A = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    Fs, ps = tsingle.lu_factor(A, v=v, precision=precision,
+                               compaction="split")
+    Fg, pg = tsingle.lu_factor(A, v=v, precision=precision,
+                               compaction="gather")
+    assert torch.equal(ps, pg)
+    if not torch.equal(Fs, Fg):
+        print(f"split and gather differ by "
+              f"{float((Fs - Fg).abs().max()):.2e}: the CPU BLAS sums the "
+              "two leading dimensions differently")
+        assert float((Fs - Fg).abs().max() / Fg.abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("m,n", [(128, 128), (96, 96)])
+def test_crout_swap_single_panel_equals_gather(rng, m, n):
+    # v == n: one panel and no push-up, so 'swap' is 'gather' exactly
+    A = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    Fs, ps = tsingle.lu_factor(A, v=n, compaction="swap")
+    Fg, pg = tsingle.lu_factor(A, v=n, compaction="gather")
+    assert torch.equal(ps, pg) and torch.equal(Fs, Fg)
+
+
+@pytest.mark.parametrize("compaction", ["split", "swap"])
+def test_compactions_leave_input_unchanged(rng, compaction):
+    # swap scatters rows of its working copy in place; split never writes
+    # its raw matrix, the caller's A itself
+    A = torch.from_numpy(rng.standard_normal((160, 96)).astype(np.float32))
+    A0 = A.clone()
+    F, perm = tsingle.lu_factor(A, v=32, compaction=compaction)
+    assert torch.equal(A, A0)
+    assert validation.lu_residual_dense(A0, F, perm) <= GATE
+
+
+def test_pushup_pairs_encode_the_jax_drop_as_self_writes(rng):
+    # a step whose pivots land both in the kept prefix and in the outgoing
+    # tail: the JAX code pads its index lists with a sentinel and drops the
+    # padded pairs; the port pairs them with the tail pivots instead
+    m_live2, w, n = 20, 8, 16
+    m_live = m_live2 + w
+    piv = torch.tensor([23, 3, 27, 11, 20, 0, 25, 14])   # tail: 20..27
+    src, dst = tsingle._pushup_pairs(piv, m_live2, w)
+    tail_piv = [20, 23, 25, 27]
+    movers = [21, 22, 24, 26]                             # live tail rows
+    slots = [0, 3, 11, 14]                                # prefix pivots
+    assert src.tolist() == movers + tail_piv
+    assert dst.tolist() == slots + tail_piv
+    assert len(set(dst.tolist())) == w                    # unique slots
+    R = rng.standard_normal((m_live, n)).astype(np.float32)
+    Rt = torch.from_numpy(R.copy())
+    scatter_rows(Rt, gather_rows(Rt, src), dst)
+    # the JAX formulation of the same step (lu/single.py's swap push-up)
+    tail = m_live2 + jnp.arange(w)
+    jpiv = jnp.asarray(piv.numpy())
+    in_piv = jnp.any(tail[:, None] == jpiv[None, :], axis=1)
+    jmov = jnp.sort(jnp.where(~in_piv, tail, m_live))
+    jslots = jnp.sort(jnp.where(jpiv < m_live2, jpiv, m_live))
+    Rj = jnp.asarray(R)
+    Rj = Rj.at[jslots].set(Rj[jnp.clip(jmov, 0, m_live - 1)], mode="drop")
+    np.testing.assert_array_equal(Rt.numpy(), np.asarray(Rj))
+    # each live tail row now sits in a vacated prefix slot
+    for s, d in zip(movers, slots):
+        np.testing.assert_array_equal(Rt.numpy()[d], R[s])
 
 
 def test_lu_and_lu_residual_match_jax(rng):
@@ -215,7 +331,7 @@ def test_residual_gates_match_jax(rng, m, n, block):
 
 def test_interop_round_trip(rng):
     A = rng.standard_normal((8, 8))
-    t = interop.from_numpy(A)
+    t = interop.from_numpy(A, device="cpu")
     assert t.dtype == torch.float32 and t.device.type == "cpu"
     F, perm = interop.factors_to_numpy(t, torch.arange(8, dtype=torch.int32))
     assert F.dtype == np.float32 and perm.dtype == np.int64
@@ -230,11 +346,12 @@ def test_lu_factor_rejects_unported_dtypes(dtype):
     assert e.value.code == ErrorCode.INVALID_TYPE
 
 
-@pytest.mark.parametrize("kw", [{"compaction": "split"},
-                                {"compaction": "swap"}])
+@pytest.mark.parametrize("kw", [{"compaction": "pushup"},
+                                {"compaction": "tiled"}])
 def test_lu_factor_rejects_unported_options(kw):
-    with pytest.raises(ConfluxError, match="ROADMAP item 6"):
+    with pytest.raises(ConfluxError, match="unknown compaction") as e:
         tsingle.lu_factor(torch.eye(8), **kw)
+    assert e.value.code == ErrorCode.INVALID_SHAPE
 
 
 def test_lu_factor_rejects_unknown_scheme():
@@ -279,13 +396,15 @@ for name in names:
 assert "conflux_tpu_torch.lu.single" in names, names
 assert "conflux_tpu_torch.ops.cuda_panel" in names, names
 assert "conflux_tpu_torch.ops.cuda_gemm" in names, names
+assert "conflux_tpu_torch.ops.cuda_scatter" in names, names
 assert "conflux_tpu_torch.cholesky.single" in names, names
 assert "conflux_tpu_torch.solve" in names, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "conflux_tpu.")))
 assert not bad, bad
-from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel
+from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel, cuda_scatter
 assert cuda_panel._lib is None and cuda_gemm._lib is None
+assert cuda_gemm._bigk_lib is None and cuda_scatter._lib is None
 assert not _build._LOADED
 """
     subprocess.run([sys.executable, "-c", code], check=True)
