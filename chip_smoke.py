@@ -23,11 +23,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. K2 vs plain: K2 against its plain version in the three modes at the
      crout path's panel updates (k = 1536, 15360, 30720), its pivot-row
      refresh at k = 15360 and a ragged shape, with TFLOP/s;
-  6. K4 vs plain: K4 against its plain version for float32 and bfloat16
-     operands at experiments/prof_pallas_gemm.py's shapes;
+  6. K4 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
+     SYNCS instructions (cuobjdump); then K4 against its plain version at
+     experiments/prof_pallas_gemm.py's shapes on each route, checked by
+     its route counter: float32 operands (the FMA tile), bfloat16 ones
+     (wgmma + TMA) and bfloat16 views with an odd row stride (mma.sync),
+     with TFLOP/s beside torch.mm's and the bound;
   7. K5 and K6 vs plain, bit for bit: the swap compaction's [1536, 32768]
-     push-up into a [32768, 32768] R, and the gathers of that many rows and
-     of the main path's compaction (31232 of 32768 rows), with GB/s;
+     push-up into a [32768, 32768] R, the gathers of that many rows and of
+     the main path's compaction (31232 of 32768 rows), and the split
+     path's narrow panel gather (31232 rows of T[:, 1536:3072]), each on
+     the bulk-copy route, with GB/s;
   8. small end to end: crout ('gather', 'split', 'swap'), flat and
      recursive LU at N=2048 in 'high' and 'highest', Cholesky flat and
      recursive, and the two solves;
@@ -40,13 +46,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Each kernel phase times the kernel, its plain version and, where one
 PyTorch call computes the same function, that call (the kernel's
-`library_ms`; the port never calls it). Each path's launch counts are set
-to 0 just before it and read just after. The line before the last but one
-is a JSON object with each kernel's numbers: its `launches` are summed over
-the main paths (each one warm-up and REPS timed factorizations), and
-`launches_by_path` gives each path's count; K4, which no path runs (no path
-of the JAX package calls matmul_pallas), counts the launches of its own
-phase. `bound_ms` is the least time the card could take for the kernel's
+`library_ms`; the port never calls it), each as timing.per_call_ms: ten
+calls back to back between two CUDA events, so the host's launch work
+overlaps the device's; the median of five such runs, over ten. K4, K5
+and K6 are timed against their library calls in turns. Each path's
+launch counts are set to 0 just before it and read just after. The line
+before the last but one is a JSON object with each kernel's numbers: its
+`launches` are summed over the main paths (each one warm-up and REPS
+timed factorizations), and `launches_by_path` gives each path's count;
+K4, which no path runs (no path of the JAX package calls matmul_pallas),
+counts the launches of its own phase. `launches_by_route` splits K4's by
+route and K5's and K6's into TMA bulk copies and word copies. `bound_ms` is the least time the card could take for the kernel's
 representative call, from this run's shapes. The line before the last is
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
@@ -139,6 +149,9 @@ K4_SHAPES = ((16384, 512, 16384), (8192, 1024, 8192), (8192, 8192, 8192))
 # K5/K6: swap's push-up of V rows into an [N, N] R, and the gathers of V
 # rows and of the main path's first compaction (N - V of N rows)
 ROW_MOVES = (("scatter", V), ("gather", V), ("gather", N - V))
+# the split path's narrow panel gather T[origin, k:k+w] at k = V: rows of
+# V f32 (6 KB) with row stride N
+PANEL_SLICE = (V, 2 * V)
 
 
 def fail(msg: str):
@@ -151,6 +164,19 @@ def _bound(flops: float, bytes_: float, flop_s: float):
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     t_ops = flops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _in_turns(kernel, library, *args):
+    """(kernel ms, library ms), each timed twice as per_call_ms in the
+    order kernel, library, library, kernel, keeping the lesser of its two:
+    the card's clock drifts under sustained load, and this order favours
+    neither."""
+    from conflux_tpu_torch.timing import per_call_ms
+
+    t_k = per_call_ms(kernel, *args)
+    t_l = per_call_ms(library, *args)
+    t_l = min(t_l, per_call_ms(library, *args))
+    return min(t_k, per_call_ms(kernel, *args)), t_l
 
 
 def _cusolver_lu(A):
@@ -216,7 +242,7 @@ def phase_build():
     for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if ("registers" in line or "Compiling entry" in line
-                    or "spill" in line):
+                    or "spill" in line or "arning" in line):
                 print(f"  {name}: " + line.strip())
     print(f"  schur_update: dynamic shared memory "
           f"{cuda_gemm._load().conflux_schur_update_smem_bytes()} bytes "
@@ -230,7 +256,7 @@ def phase_k1():
 
     from conflux_tpu_torch.ops import cuda_panel
     from conflux_tpu_torch.ops.panel import _rank1_block_t
-    from conflux_tpu_torch.timing import median_ms
+    from conflux_tpu_torch.timing import per_call_ms
 
     # (w, m, mode, j0, seed)
     cases = [(w, m, mode, 0, 1000 * si + len(mode))
@@ -272,11 +298,11 @@ def phase_k1():
             keep[ref[2]] = False
         diff = float((ref[0] - got[0])[:, keep].abs().max())
         scale = float(ref[0][:, keep].abs().max())
-        t_k = median_ms(kernel)
-        t_p = median_ms(plain)
+        t_k = per_call_ms(kernel)
+        t_p = per_call_ms(plain)
         # the library's LU with partial pivoting of the [m, w] block, every
         # lane available, through cuSOLVER; forced elimination has none
-        t_l = None if forced else median_ms(_cusolver_lu, Mt.T)
+        t_l = None if forced else per_call_ms(_cusolver_lu, Mt.T)
         # each input read once and each output written once; w (w - 1) / 2
         # rank-1 multiply-adds per lane (2 operations each) and m w
         # divisions in fp32
@@ -354,7 +380,7 @@ def phase_k3(medium_bf16: bool):
 
     from conflux_tpu_torch.ops import cuda_gemm
     from conflux_tpu_torch.ops.gemm import MODES, _schur_update_t
-    from conflux_tpu_torch.timing import median_ms
+    from conflux_tpu_torch.timing import per_call_ms
 
     rows = []
     for si, (tag, m, ncols, k, c0, c1) in enumerate(K3_SHAPES):
@@ -390,11 +416,11 @@ def phase_k3(medium_bf16: bool):
                          f"(gate {K3_TOL:.0e})")
                 good = diff <= K3_TOL * scale
             del d
-            t_k = median_ms(cuda_gemm.schur_update, got, A, B, c0, mode, c1)
-            t_p = median_ms(_schur_update_t, ref, A, B, c0, mode, c1)
+            t_k = per_call_ms(cuda_gemm.schur_update, got, A, B, c0, mode, c1)
+            t_p = per_call_ms(_schur_update_t, ref, A, B, c0, mode, c1)
             lib = _library_sub(mode, medium_bf16)
             t_l = (None if lib is None else
-                   median_ms(lib, R0[:, c0:c1], A, B))
+                   per_call_ms(lib, R0[:, c0:c1], A, B))
             nt = c1 - c0
             esize = R0.element_size()
             bound = _bound(MODES[mode][1] * 2.0 * m * nt * k,
@@ -425,7 +451,7 @@ def phase_k2(medium_bf16: bool):
 
     from conflux_tpu_torch.ops import cuda_gemm
     from conflux_tpu_torch.ops.gemm import MODES, _sub_matmul_bigk_t
-    from conflux_tpu_torch.timing import median_ms
+    from conflux_tpu_torch.timing import per_call_ms
 
     rows = []
     for si, (tag, m, k, n) in enumerate(K2_SHAPES):
@@ -456,10 +482,10 @@ def phase_k2(medium_bf16: bool):
                          f"(gate {K3_TOL:.0e})")
                 good = diff <= K3_TOL * scale
             del d
-            t_k = median_ms(cuda_gemm.sub_matmul_bigk, R, A, B, mode)
-            t_p = median_ms(_sub_matmul_bigk_t, R, A, B, mode)
+            t_k = per_call_ms(cuda_gemm.sub_matmul_bigk, R, A, B, mode)
+            t_p = per_call_ms(_sub_matmul_bigk_t, R, A, B, mode)
             lib = _library_sub(mode, medium_bf16)
-            t_l = None if lib is None else median_ms(lib, R, A, B)
+            t_l = None if lib is None else per_call_ms(lib, R, A, B)
             bound = _bound(MODES[mode][1] * 2.0 * m * n * k,
                            2.0 * R.element_size() * m * n
                            + 4.0 * (m * k + k * n), BF16_FLOP_S)
@@ -481,49 +507,98 @@ def phase_k2(medium_bf16: bool):
     return rows
 
 
+def _sass_check():
+    """The wgmma kernel of the built K4 library must hold wgmma (HGMMA),
+    TMA loads (UTMALDG) and mbarrier operations (SYNCS) in its SASS, by
+    the CUDA toolkit's cuobjdump; the bulk row-move kernel's bulk copies
+    (UBLKCP) are printed beside them."""
+    import os
+
+    from conflux_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        fail(f"cuobjdump not found beside nvcc ({cuobjdump})")
+    found = {}
+    for lib, kernel, want in (("bigk_gemm", "matmul_wgmma_kernel",
+                               ("HGMMA", "UTMALDG", "SYNCS")),
+                              ("row_move", "bulk_move_kernel",
+                               ("UBLKCP", "SYNCS"))):
+        sass = subprocess.run(
+            [cuobjdump, "--dump-sass", str(_build._lib_path(lib))],
+            capture_output=True, text=True, check=True).stdout
+        body = ""
+        for part in sass.split("Function : ")[1:]:
+            if kernel in part.splitlines()[0]:
+                body = part
+        counts = {op: body.count(op) for op in want}
+        found[kernel] = counts
+        print(f"SASS of {kernel} ({lib}): {counts} instructions")
+    missing = [op for op, n in found["matmul_wgmma_kernel"].items() if n == 0]
+    if missing:
+        fail(f"the wgmma kernel's SASS lacks {missing}")
+
+
 def phase_k4():
     import torch
 
     from conflux_tpu_torch.ops import cuda_gemm
     from conflux_tpu_torch.ops.gemm import _matmul_t
-    from conflux_tpu_torch.timing import median_ms
+    from conflux_tpu_torch.timing import per_call_ms
 
+    _sass_check()
+    counters = ("MATMUL_LAUNCHES", "MATMUL_WGMMA_LAUNCHES",
+                "MATMUL_MMA_SYNC_LAUNCHES")
+    # the route counters each call must move: f32 FMA, bf16 on TMA-aligned
+    # operands (wgmma), bf16 on views with an odd row stride (mma.sync)
+    routes = {"float32": (1, 0, 0), "bfloat16 wgmma": (1, 1, 0),
+              "bfloat16 mma.sync": (1, 0, 1)}
     rows = []
     for si, (m, k, n) in enumerate(K4_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(1300 + si)
         A32 = torch.randn(m, k, generator=g, device="cuda")
         B32 = torch.randn(k, n, generator=g, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
+        for route, step in routes.items():
+            dtype = torch.float32 if route == "float32" else torch.bfloat16
             A, B = A32.to(dtype), B32.to(dtype)
-            ref = _matmul_t(A, B)
+            if route == "bfloat16 mma.sync":
+                A = torch.empty(m, k + 1, dtype=dtype,
+                                device="cuda")[:, :k].copy_(A)
+                B = torch.empty(k, n + 1, dtype=dtype,
+                                device="cuda")[:, :n].copy_(B)
+            before = [getattr(cuda_gemm, c) for c in counters]
             got = cuda_gemm.matmul(A, B)
             torch.cuda.synchronize()
+            moved = tuple(getattr(cuda_gemm, c) - b
+                          for c, b in zip(counters, before))
+            if moved != step:
+                fail(f"K4 [{m}, {k}, {n}] {route}: route counters moved "
+                     f"{moved}, expected {step}")
+            ref = _matmul_t(A, B)
             scale = float(torch.mm(A.float().abs(), B.float().abs()).max())
             diff = float((got - ref).abs().max())
             del ref, got
-            t_k = median_ms(cuda_gemm.matmul, A, B)
-            t_p = median_ms(_matmul_t, A, B)
             # the library product: fp32 (TF32 off) or bf16 with fp32 output
-            if dtype == torch.float32:
-                t_l = median_ms(torch.mm, A, B)
-            else:
-                t_l = median_ms(lambda a, b: torch.mm(
-                    a, b, out_dtype=torch.float32), A, B)
+            library = (torch.mm if dtype == torch.float32 else
+                       lambda a, b: torch.mm(a, b, out_dtype=torch.float32))
+            t_k, t_l = _in_turns(cuda_gemm.matmul, library, A, B)
+            t_p = per_call_ms(_matmul_t, A, B)
             esize = A.element_size()
             bound = _bound(2.0 * m * n * k,
                            esize * (m * k + k * n) + 4.0 * m * n,
                            FP32_FLOP_S if dtype == torch.float32
                            else BF16_FLOP_S)
             tflops = 2.0 * m * n * k / (t_k * 1e-3) / 1e12
-            name = str(dtype).replace("torch.", "")
-            print(f"K4 [{m}, {k}] @ [{k}, {n}] {name:8s}: max|diff| "
+            lib_tflops = 2.0 * m * n * k / (t_l * 1e-3) / 1e12
+            print(f"K4 [{m}, {k}] @ [{k}, {n}] {route:17s}: max|diff| "
                   f"{diff:.3e}, rel to max(|A|@|B|) {diff / scale:.3e} (gate "
                   f"{K3_TOL:.0e}), kernel {t_k:.4f} ms ({tflops:.1f} "
-                  f"TFLOP/s), plain {t_p:.4f} ms, torch.mm {t_l:.4f} ms, "
-                  f"bound {bound[0]:.4f} ms ({bound[1]})")
+                  f"TFLOP/s), plain {t_p:.4f} ms, torch.mm {t_l:.4f} ms "
+                  f"({lib_tflops:.1f} TFLOP/s), bound {bound[0]:.4f} ms "
+                  f"({bound[1]}, {bound[0] / t_k:.1%} of it)")
             if not diff <= K3_TOL * scale:
-                fail(f"K4 [{m}, {k}, {n}] {name}: kernel and plain disagree")
-            rows.append({"shape": (m, k, n), "dtype": name,
+                fail(f"K4 [{m}, {k}, {n}] {route}: kernel and plain disagree")
+            rows.append({"shape": (m, k, n), "route": route,
                          "max_abs_err": diff, "ms": t_k, "plain_ms": t_p,
                          "library_ms": t_l, "bound_ms": bound[0],
                          "bound_by": bound[1]})
@@ -538,55 +613,69 @@ def phase_rows():
 
     from conflux_tpu_torch.ops import cuda_scatter
     from conflux_tpu_torch.ops.scatter import _gather_rows_t, _scatter_rows_t
-    from conflux_tpu_torch.timing import median_ms
+    from conflux_tpu_torch.timing import per_call_ms
 
     g = torch.Generator(device="cuda").manual_seed(1400)
     R32 = torch.randn(N, N, generator=g, device="cuda")
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    moves = [(dtype, kind, w, None) for dtype in (torch.float32,
+                                                   torch.bfloat16)
+             for kind, w in ROW_MOVES]
+    moves.append((torch.float32, "gather", N - V, PANEL_SLICE))
+    for dtype, kind, w, cols in moves:
         R = R32 if dtype == torch.float32 else R32.to(torch.bfloat16)
+        if cols is not None:
+            R = R[:, cols[0]:cols[1]]
+        width = R.shape[1]
         name = str(dtype).replace("torch.", "")
-        for kind, w in ROW_MOVES:
-            idx = torch.randperm(N, generator=g, device="cuda")[:w]
-            if kind == "gather":
-                ref = _gather_rows_t(R, idx)
-                got = cuda_scatter.gather_rows(R, idx)
-                torch.cuda.synchronize()
-                same = torch.equal(got, ref)
-                del ref, got
-                t_k = median_ms(cuda_scatter.gather_rows, R, idx)
-                t_p = median_ms(_gather_rows_t, R, idx)
-                t_l = median_ms(torch.index_select, R, 0, idx)
-            else:
-                src = torch.randn(w, N, generator=g, device="cuda").to(dtype)
-                ref = _scatter_rows_t(R.clone(), src, idx)
-                got = cuda_scatter.scatter_rows(R.clone(), src, idx)
-                torch.cuda.synchronize()
-                same = torch.equal(got, ref)
-                del ref, got
-                # repeated in place: the same rows get the same values
-                Rw = R.clone()
-                t_k = median_ms(cuda_scatter.scatter_rows, Rw, src, idx)
-                t_p = median_ms(_scatter_rows_t, Rw, src, idx)
-                t_l = median_ms(lambda r, s, i: r.index_copy_(0, i, s),
-                                Rw, src, idx)
-                del Rw, src
-            moved = 2.0 * w * N * R.element_size()
-            bound = _bound(0.0, moved + 8.0 * w, BF16_FLOP_S)
-            gbs = moved / (t_k * 1e-3) / 1e9
-            tag = f"K{5 if kind == 'scatter' else 6} {kind} {w} rows of " \
-                  f"[{N}, {N}] {name}"
-            print(f"{tag}: bit-exact {same}, kernel {t_k:.4f} ms "
-                  f"({gbs:.0f} GB/s), plain {t_p:.4f} ms, library "
-                  f"{t_l:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-            if not same:
-                fail(f"{tag}: kernel and plain differ")
-            rows.append({"kind": kind, "rows": w, "dtype": name,
-                         "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
-                         "library_ms": t_l, "bound_ms": bound[0],
-                         "bound_by": bound[1]})
-            del idx
-        del R
+        idx = torch.randperm(N, generator=g, device="cuda")[:w]
+        bulk = (cuda_scatter.SCATTER_ROWS_BULK_LAUNCHES
+                + cuda_scatter.GATHER_ROWS_BULK_LAUNCHES)
+        if kind == "gather":
+            ref = _gather_rows_t(R, idx)
+            got = cuda_scatter.gather_rows(R, idx)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            del ref, got
+            t_k, t_l = _in_turns(cuda_scatter.gather_rows,
+                                 lambda r, i: torch.index_select(r, 0, i),
+                                 R, idx)
+            t_p = per_call_ms(_gather_rows_t, R, idx)
+        else:
+            src = torch.randn(w, N, generator=g, device="cuda").to(dtype)
+            ref = _scatter_rows_t(R.clone(), src, idx)
+            got = cuda_scatter.scatter_rows(R.clone(), src, idx)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            del ref, got
+            # repeated in place: the same rows get the same values
+            Rw = R.clone()
+            t_k, t_l = _in_turns(cuda_scatter.scatter_rows,
+                                 lambda r, s, i: r.index_copy_(0, i, s),
+                                 Rw, src, idx)
+            t_p = per_call_ms(_scatter_rows_t, Rw, src, idx)
+            del Rw, src
+        # every move here has 16-byte rows, starts and strides
+        if (cuda_scatter.SCATTER_ROWS_BULK_LAUNCHES
+                + cuda_scatter.GATHER_ROWS_BULK_LAUNCHES) == bulk:
+            fail(f"{kind} of {w} rows did not take the bulk-copy route")
+        moved = 2.0 * w * width * R.element_size()
+        bound = _bound(0.0, moved + 8.0 * w, BF16_FLOP_S)
+        gbs = moved / (t_k * 1e-3) / 1e9
+        of = (f"[{N}, {N}]" if cols is None else
+              f"T[:, {cols[0]}:{cols[1]}] of [{N}, {N}]")
+        tag = f"K{5 if kind == 'scatter' else 6} {kind} {w} rows of {of} " \
+              f"{name}"
+        print(f"{tag}: bit-exact {same}, kernel {t_k:.4f} ms "
+              f"({gbs:.0f} GB/s), plain {t_p:.4f} ms, library "
+              f"{t_l:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        if not same:
+            fail(f"{tag}: kernel and plain differ")
+        rows.append({"kind": kind, "rows": w, "width": width, "dtype": name,
+                     "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_l, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
+        del idx, R
         torch.cuda.empty_cache()
     del R32
     torch.cuda.empty_cache()
@@ -706,7 +795,13 @@ def _counters():
             "sub_matmul_bigk": (cuda_gemm, "SUB_MATMUL_BIGK_LAUNCHES"),
             "matmul": (cuda_gemm, "MATMUL_LAUNCHES"),
             "scatter_rows": (cuda_scatter, "SCATTER_ROWS_LAUNCHES"),
-            "gather_rows": (cuda_scatter, "GATHER_ROWS_LAUNCHES")}
+            "gather_rows": (cuda_scatter, "GATHER_ROWS_LAUNCHES"),
+            # routes, counted apart
+            "matmul wgmma": (cuda_gemm, "MATMUL_WGMMA_LAUNCHES"),
+            "matmul mma.sync": (cuda_gemm, "MATMUL_MMA_SYNC_LAUNCHES"),
+            "scatter_rows bulk": (cuda_scatter,
+                                  "SCATTER_ROWS_BULK_LAUNCHES"),
+            "gather_rows bulk": (cuda_scatter, "GATHER_ROWS_BULK_LAUNCHES")}
 
 
 def _reset_counts():
@@ -820,7 +915,7 @@ def main() -> int:
     k2_rows = phase_k2(medium_bf16)
     _reset_counts()
     k4_rows = phase_k4()
-    k4_launches = _counts()["matmul"]
+    k4_counts = _counts()
     k56_rows = phase_rows()
     phase_small()
     by_path = {"crout": phase_lu_path(smi, "crout"),
@@ -834,7 +929,7 @@ def main() -> int:
         # K4 is exempt: no path of the JAX package calls matmul_pallas
         if n == 0 and name != "matmul":
             fail(f"{name} was never launched on the main paths")
-    launches["matmul"] = k4_launches
+    launches["matmul"] = k4_counts["matmul"]
     if "jax" in sys.modules:
         fail("jax was imported")
     # each kernel's row at its representative main-path shape and mode
@@ -851,13 +946,13 @@ def main() -> int:
                                   mode="high")),
         "matmul": ("conflux_tpu_torch/csrc/bigk_gemm.cu",
                    "conflux_tpu/ops/pallas_gemm.py:30",
-                   _pick(k4_rows, shape=K4_SHAPES[0], dtype="float32")),
+                   _pick(k4_rows, shape=K4_SHAPES[0], route="float32")),
         "scatter_rows": ("conflux_tpu_torch/csrc/row_move.cu",
                          "conflux_tpu/ops/pallas_scatter.py:42",
                          _pick(k56_rows, kind="scatter", dtype="float32")),
         "gather_rows": ("conflux_tpu_torch/csrc/row_move.cu",
                         "conflux_tpu/ops/pallas_scatter.py:114",
-                        _pick(k56_rows, kind="gather", rows=V,
+                        _pick(k56_rows, kind="gather", rows=V, width=N,
                               dtype="float32")),
     }
     kernels = []
@@ -869,6 +964,15 @@ def main() -> int:
         if name == "matmul":
             entry["launches_from"] = ("its own phase: no path of the JAX "
                                       "package calls matmul_pallas")
+            wgmma = k4_counts["matmul wgmma"]
+            mma = k4_counts["matmul mma.sync"]
+            entry["launches_by_route"] = {
+                "wgmma": wgmma, "mma.sync": mma,
+                "f32": k4_counts["matmul"] - wgmma - mma}
+        if name in ("scatter_rows", "gather_rows"):
+            bulk = sum(c[name + " bulk"] for c in by_path.values())
+            entry["launches_by_route"] = {"bulk": bulk,
+                                          "words": launches[name] - bulk}
         entry.update({k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")})

@@ -33,21 +33,28 @@
 // K4: C = A @ B with an fp32 result, the plain GEMM skeleton. Replaces
 // conflux_tpu/ops/pallas_gemm.py:matmul_pallas (kernel _mm_kernel). A and B
 // are both float32 or both bfloat16:
-//   * float32: IEEE fp32 products and sums (fmaf), no tensor cores. (Mosaic
-//     ran an f32 x f32 jnp.dot as one bf16 pass on TPU silicon; the JAX
-//     tests check the interpret-mode fp32 function, and TF32 would be a
-//     third function.) Bound by the card's 67 TFLOP/s of fp32 FMA: a
-//     [128, 128] tile per 256-thread CTA, 8 x 8 outputs per thread read as
-//     float4 pairs 64 apart (conflict-free), A stored transposed in shared
-//     memory, K in chunks of 8, double-buffered through registers;
-//   * bfloat16: mma.sync m16n8k16 with fp32 accumulation (products of bf16
-//     values are exact in fp32): a [128, 128] tile per CTA of 8 warps, each
-//     a [32, 64] sub-tile, K in chunks of 32 bf16, double-buffered through
-//     registers (16-byte loads where the rows are 16-byte aligned).
-// Both take any shape and any row stride; the ragged edges read as zero
-// and the stores are masked. wgmma and TMA are later work.
+//   * float32: IEEE fp32 products and sums (fmaf, in K order), no tensor
+//     cores. (Mosaic ran an f32 x f32 jnp.dot as one bf16 pass on TPU
+//     silicon; the JAX tests check the interpret-mode fp32 function, and
+//     TF32 would be a third function.) Bound by the card's 67 TFLOP/s of
+//     fp32 FMA: a [128, 256] tile per 256-thread CTA, fed by a 3-stage
+//     cp.async ring of K chunks of 32 (one barrier per 32 K steps, no
+//     register staging);
+//   * bfloat16 (products of bf16 values are exact in fp32, sums in fp32):
+//     bound by the tensor cores (989 TFLOP/s) at large shapes, by writing
+//     the fp32 C where K is short. Operands TMA can take (16-byte-aligned
+//     base, row stride a multiple of 8) go to a warp-specialised kernel:
+//     TMA loads into a 4-stage ring of 128-byte-swizzled shared memory
+//     with mbarriers, two consumer warpgroups on wgmma m64n256k16,
+//     persistent CTAs whose epilogue overlaps the next tile's loads
+//     (wgmma_tile.cuh holds the building blocks). Other operands go to
+//     mma.sync m16n8k16 on register-staged tiles. The route depends on
+//     the operands' alignment alone and is reported to the caller.
+// All take any shape and any row stride; the ragged edges read as zero
+// (TMA fills them) and the stores are masked.
 
 #include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -180,82 +187,156 @@ cudaError_t launch_bigk_aligned(const BigkArgs& args, const Plan& p,
 
 // ---------------------------------------------------------------- K4 f32
 
-constexpr int kF32BM = 128, kF32BN = 128, kF32BK = 8, kF32Threads = 256;
+// A [128, 256] tile per CTA of 256 threads, one CTA per SM (213 registers
+// a thread); each thread owns 8 x 16 outputs (rows 4ty.. and 64 + 4ty..,
+// columns 4tx + 64h.., h < 4), read per K step as float4s 64 apart
+// (conflict-free). A kF32Stages-deep cp.async ring of K chunks of 32, one
+// barrier per chunk: B lands row-major [32][256] (16-byte copies where
+// aligned); A lands K-major [32][128 + 4] through 4-byte copies, each warp
+// copying 8 K values of 4 rows (four full 32-byte sectors read, 32
+// distinct banks written). Each thread's copy addresses are fixed but for
+// K: four A row pointers and one B pointer, set up once. (A [128, 128]
+// tile at two CTAs per SM ran 5 % slower on an H100.)
+constexpr int kF32BM = 128, kF32BN = 256, kF32BK = 32, kF32Stages = 3;
+constexpr int kF32Threads = 256;
+constexpr int kF32ColGroups = kF32BN / 64;     // float4 column pairs
+constexpr int kF32MinBlocks = 256 / kF32BN;    // CTAs per SM
+constexpr int kF32LdA = kF32BM + 4;
+constexpr int kF32StageA = kF32BK * kF32LdA;                 // floats
+constexpr int kF32StageFloats = kF32StageA + kF32BK * kF32BN;
+constexpr size_t kF32Smem = sizeof(float) * kF32Stages * kF32StageFloats;
+
+// One thread's share of a chunk: A rows ra + 32i at K offsets ca + 8j
+// (i, j < 4); B rows rb + kBVStep u at columns cb..cb+3 (vector copies)
+// or rows rb + kBEStep u at column cb (element copies).
+template <bool kVec>
+struct F32Loader {
+  static constexpr int kBVStep = kF32Threads / (kF32BN / 4);
+  static constexpr int kBEStep = kF32Threads / kF32BN;
+  const float* pa[4];    // A row pointers, null past m
+  const float* pb;       // B at row 0 of this thread's rows, column cb
+  size_t ldb;
+  int ra, ca, rb, cb, bw;   // bw: B columns this thread copies (vector)
+  const float* a0;
+  const float* b0;
+  int k;
+
+  __device__ __forceinline__ F32Loader(const float* a, int lda,
+                                       const float* b, int ldb_, int m,
+                                       int n, int k_, int row0, int col0,
+                                       int tid)
+      : ldb(ldb_), a0(a), b0(b), k(k_) {
+    const int lane = tid % 32, warp = tid / 32;
+    ra = 4 * warp + lane / 8;
+    ca = lane % 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gr = row0 + ra + 32 * i;
+      pa[i] = gr < m ? a + (size_t)gr * lda : nullptr;
+    }
+    if (kVec) {
+      rb = tid / (kF32BN / 4);
+      cb = 4 * (tid % (kF32BN / 4));
+    } else {
+      rb = tid / kF32BN;
+      cb = tid % kF32BN;
+    }
+    const int gc = col0 + cb;
+    bw = kVec ? max(0, min(4, n - gc)) : (gc < n ? 1 : 0);
+    pb = b + gc;
+  }
+
+  // start the copies of K chunk [k0, k0 + kF32BK) into stage st
+  __device__ __forceinline__ void load(float* st, int k0) const {
+    float* sa = st + ca * kF32LdA + ra;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gk = k0 + ca + 8 * j;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = pa[i] != nullptr && gk < k;
+        cp_async4(sa + 8 * j * kF32LdA + 32 * i, in ? pa[i] + gk : a0,
+                  in ? 4 : 0);
+      }
+    }
+    float* sb = st + kF32StageA + rb * kF32BN + cb;
+    if (kVec) {
+#pragma unroll
+      for (int u = 0; u < kF32BK / kBVStep; ++u) {
+        const int gk = k0 + rb + kBVStep * u;
+        const int w = gk < k ? bw : 0;
+        cp_async16(sb + kBVStep * u * kF32BN, w ? pb + gk * ldb : b0, 4 * w);
+      }
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < kF32BK / kBEStep; ++u) {
+        const int gk = k0 + rb + kBEStep * u;
+        const bool in = bw && gk < k;
+        cp_async4(sb + kBEStep * u * kF32BN, in ? pb + gk * ldb : b0,
+                  in ? 4 : 0);
+      }
+    }
+  }
+};
 
 template <bool kVec>
-__global__ void __launch_bounds__(kF32Threads) matmul_f32_kernel(
+__global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
+matmul_f32_kernel(
     const float* a, int lda, const float* b, int ldb, float* c, int ldc,
     int m, int n, int k) {
-  __shared__ __align__(16) float sa[2][kF32BK][kF32BM];  // A chunk, [k][m]
-  __shared__ __align__(16) float sb[2][kF32BK][kF32BN];  // B chunk, [k][n]
+  constexpr int kCols = 4 * kF32ColGroups;
+  extern __shared__ __align__(16) float f32_smem[];
   const int row0 = blockIdx.y * kF32BM, col0 = blockIdx.x * kF32BN;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  // this thread's share of each chunk: 4 A elements of one row, 4 B
-  // elements of one K row
-  const int ar = tid / 2, ac = 4 * (tid % 2);
-  const int br = tid / 32, bc = 4 * (tid % 32);
-  float ra[4], rb[4];
 
-  auto fetch = [&](int k0) {
-    const int gr = row0 + ar, gk = k0 + ac;
-    if (kVec && gr < m && gk + 4 <= k) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(a + (size_t)gr * lda + gk);
-      ra[0] = v.x; ra[1] = v.y; ra[2] = v.z; ra[3] = v.w;
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        ra[u] = gr < m && gk + u < k ? a[(size_t)gr * lda + gk + u] : 0.f;
-    }
-    const int bk = k0 + br, gc = col0 + bc;
-    if (kVec && bk < k && gc + 4 <= n) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(b + (size_t)bk * ldb + gc);
-      rb[0] = v.x; rb[1] = v.y; rb[2] = v.z; rb[3] = v.w;
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        rb[u] = bk < k && gc + u < n ? b[(size_t)bk * ldb + gc + u] : 0.f;
-    }
-  };
-  auto put = [&](int s) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) sa[s][ac + u][ar] = ra[u];
-    *reinterpret_cast<float4*>(&sb[s][br][bc]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
-  };
-
-  float acc[8][8];
+  float acc[8][kCols];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
+  const F32Loader<kVec> loader(a, lda, b, ldb, m, n, k, row0, col0, tid);
   const int nk = (k + kF32BK - 1) / kF32BK;
-  fetch(0);
-  put(0);
-  __syncthreads();
-  for (int kc = 0; kc < nk; ++kc) {
-    const int s = kc & 1;
-    if (kc + 1 < nk) fetch((kc + 1) * kF32BK);   // in flight during the FMAs
 #pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < nk)
+      loader.load(f32_smem + s * kF32StageFloats, s * kF32BK);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();     // chunk kc landed; every thread is done with kc - 1
+    const int next = kc + kF32Stages - 1;
+    if (next < nk)
+      loader.load(f32_smem + (next % kF32Stages) * kF32StageFloats,
+                  next * kF32BK);
+    cp_async_commit();
+    const float* sa = f32_smem + (kc % kF32Stages) * kF32StageFloats;
+    const float* sb = sa + kF32StageA;
+#pragma unroll 8
     for (int kk = 0; kk < kF32BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sa[s][kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&sa[s][kk][4 * ty + 64]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sb[s][kk][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&sb[s][kk][4 * tx + 64]);
+      const float* arow = sa + kk * kF32LdA;
+      const float* brow = sb + kk * kF32BN;
+      const float4 a0 = *reinterpret_cast<const float4*>(arow + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(arow + 4 * ty + 64);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float bv[kCols];
+#pragma unroll
+      for (int h = 0; h < kF32ColGroups; ++h) {
+        const float4 bq =
+            *reinterpret_cast<const float4*>(brow + 4 * tx + 64 * h);
+        bv[4 * h] = bq.x;
+        bv[4 * h + 1] = bq.y;
+        bv[4 * h + 2] = bq.z;
+        bv[4 * h + 3] = bq.w;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < kCols; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    if (kc + 1 < nk) put(s ^ 1);  // stage s^1 was last read before the
-    __syncthreads();              // previous barrier
   }
 
 #pragma unroll
@@ -263,7 +344,7 @@ __global__ void __launch_bounds__(kF32Threads) matmul_f32_kernel(
     const int gr = row0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
     if (gr >= m) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kF32ColGroups; ++h) {
       const int gc = col0 + 4 * tx + 64 * h;
       float* p = c + (size_t)gr * ldc + gc;
       if (kVec && gc + 4 <= n) {
@@ -279,8 +360,12 @@ __global__ void __launch_bounds__(kF32Threads) matmul_f32_kernel(
   }
 }
 
-// --------------------------------------------------------------- K4 bf16
+// ------------------------------------------------------ K4 bf16, mma.sync
 
+// The route for operands TMA cannot take (a base off 16 bytes or a row
+// stride not a multiple of 8 elements): a [128, 128] tile per CTA of 8
+// warps on mma.sync m16n8k16, each warp a [32, 64] sub-tile, K in chunks
+// of 32, double-buffered through registers with element loads.
 constexpr int kHBM = 128, kHBN = 128, kHBK = 32, kHThreads = 256;
 constexpr int kHWarpsN = 2, kHWM = 32, kHWN = 64;
 constexpr int kHMT = kHWM / 16, kHNT = kHWN / 8;
@@ -290,12 +375,10 @@ static_assert((kHBM / kHWM) * kHWarpsN * 32 == kHThreads, "warp layout");
 
 // bf16 elements [r, c .. c+8) of a [rows, cols] matrix as one uint4, zero
 // past the edges
-template <bool kVec>
 __device__ __forceinline__ uint4 load8(const uint16_t* base, int ld, int r,
                                        int c, int rows, int cols) {
   if (r >= rows || c >= cols) return make_uint4(0, 0, 0, 0);
   const uint16_t* p = base + (size_t)r * ld + c;
-  if (kVec && c + 8 <= cols) return *reinterpret_cast<const uint4*>(p);
   uint32_t w[4];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
@@ -306,7 +389,6 @@ __device__ __forceinline__ uint4 load8(const uint16_t* base, int ld, int r,
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <bool kVec>
 __global__ void __launch_bounds__(kHThreads) matmul_bf16_kernel(
     const uint16_t* a, int lda, const uint16_t* b, int ldb, float* c,
     int ldc, int m, int n, int k) {
@@ -323,8 +405,8 @@ __global__ void __launch_bounds__(kHThreads) matmul_bf16_kernel(
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int seg = tid + i * kHThreads;
-      ra[i] = load8<kVec>(a, lda, row0 + seg / 4, k0 + 8 * (seg % 4), m, k);
-      rb[i] = load8<kVec>(b, ldb, k0 + seg / 16, col0 + 8 * (seg % 16), k, n);
+      ra[i] = load8(a, lda, row0 + seg / 4, k0 + 8 * (seg % 4), m, k);
+      rb[i] = load8(b, ldb, k0 + seg / 16, col0 + 8 * (seg % 16), k, n);
     }
   };
   auto put = [&](int s) {
@@ -393,6 +475,244 @@ __global__ void __launch_bounds__(kHThreads) matmul_bf16_kernel(
       }
 }
 
+// --------------------------------------------------- K4 bf16, wgmma + TMA
+
+// Persistent CTAs, one per SM, walk [128, 256] output tiles in grouped
+// order. Three warpgroups: warpgroup 0 is the producer (one thread issues
+// the TMA loads, the others leave; its registers go to the consumers), 1
+// and 2 are consumers, each running wgmma m64n256k16 on its 64 rows with
+// 128 fp32 accumulators a thread. K moves in chunks of 64 through a ring of
+// kWgStages stages (A [128][64] and B as four [64 k][64 n] boxes, 48 KB a
+// stage), each with a full barrier (TMA bytes landed) and an empty barrier
+// (both consumers done reading). A consumer keeps one chunk's wgmmas in
+// flight and releases the stage before it. The producer loads the next
+// tile's chunks during the epilogue. The epilogue goes through shared
+// memory: each consumer writes a quarter of its fp32 block at a time into
+// 128-byte-swizzled staging boxes (two lanes to a bank, the least a warp's
+// 256 bytes allow) and one thread hands them to a TMA store, which drains
+// to device memory while the next tile computes; where C's base or row
+// stride does not suit TMA, the registers are stored directly, masked.
+constexpr int kWgBM = 128, kWgBN = 256, kWgBK = 64, kWgStages = 4;
+constexpr int kWgConsumers = 2;
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);
+constexpr int kWgABytes = kWgBM * kWgBK * 2;           // 16 KB
+constexpr int kWgBBoxBytes = kWgBK * 64 * 2;            // 8 KB
+constexpr int kWgStageBytes = kWgABytes + (kWgBN / 64) * kWgBBoxBytes;
+constexpr int kWgGroupM = 8;                            // row tiles per group
+// A's stride between 8-row groups; B's between 64-column boxes and 8-row
+// k groups (wgmma_tile.cuh)
+constexpr uint32_t kWgASbo = 1024, kWgBLbo = kWgBBoxBytes, kWgBSbo = 1024;
+// the epilogue: each consumer stages a quarter of its [64, 256] fp32 block
+// (two [64][32] boxes, 128-byte swizzled) for one TMA store at a time
+constexpr int kWgCBoxCols = 32;                         // 128-byte rows
+constexpr int kWgCBoxBytes = 64 * kWgCBoxCols * 4;      // 8 KB
+constexpr int kWgCStageBytes = 2 * kWgCBoxBytes;        // 16 KB
+constexpr size_t kWgSmem =
+    (size_t)kWgStages * kWgStageBytes + kWgConsumers * kWgCStageBytes +
+    2 * kWgStages * sizeof(uint64_t) + 1024;            // alignment slack
+static_assert(kWgStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
+
+__device__ __forceinline__ void wg_tile(int t, int tiles_m, int tiles_n,
+                                        int& row0, int& col0) {
+  const int per_group = kWgGroupM * tiles_n;
+  const int first_m = (t / per_group) * kWgGroupM;
+  const int group_m = min(tiles_m - first_m, kWgGroupM);
+  row0 = (first_m + (t % per_group) % group_m) * kWgBM;
+  col0 = ((t % per_group) / group_m) * kWgBN;
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1) matmul_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_b,
+    const __grid_constant__ CUtensorMap map_c, bool tma_c, float* c,
+    int ldc, int m, int n, int k, int tiles_m, int tiles_n) {
+  using namespace conflux_wgmma;
+  extern __shared__ uint8_t wg_smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* cstage = smem + kWgStages * kWgStageBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(cstage + kWgConsumers * kWgCStageBytes);
+  uint64_t* empty = full + kWgStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int tiles = tiles_m * tiles_n;
+  const int nk = (k + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int row0, col0;
+        wg_tile(t, tiles_m, tiles_n, row0, col0);
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = smem + stage * kWgStageBytes;
+          mbar_expect_tx(&full[stage], kWgStageBytes);
+          tma_load_2d(st, &map_a, &full[stage], kc * kWgBK, row0);
+#pragma unroll
+          for (int j = 0; j < kWgBN / 64; ++j)
+            tma_load_2d(st + kWgABytes + j * kWgBBoxBytes, &map_b,
+                        &full[stage], col0 + 64 * j, kc * kWgBK);
+          if (++stage == kWgStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;                       // this consumer's 64 rows
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const bool vec2 = ldc % 2 == 0 && reinterpret_cast<uintptr_t>(c) % 8 == 0;
+    float acc[128];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int row0, col0;
+      wg_tile(t, tiles_m, tiles_n, row0, col0);
+      int prev = -1;
+      for (int kc = 0; kc < nk; ++kc) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* sa = smem + stage * kWgStageBytes + cw * 64 * 128;
+        const uint8_t* sb = smem + stage * kWgStageBytes + kWgABytes;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kWgBK / 16; ++s)
+          wgmma_m64n256k16_bf16_tb(
+              acc, smem_desc(sa + 32 * s, 16, kWgASbo),
+              smem_desc(sb + 2048 * s, kWgBLbo, kWgBSbo), kc > 0 || s > 0);
+        wgmma_commit();
+        wgmma_wait<1>();          // chunk kc - 1's products are done
+        if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kWgStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+
+      if (tma_c) {
+        // a quarter (64 columns) at a time: registers -> the swizzled
+        // staging boxes -> one TMA store of two boxes; each thread's row r
+        // has r % 8 == lane / 4, its float2 at 16-byte chunk
+        // (2 j' + (lane % 4) / 2) ^ (lane / 4) of the 128-byte box row
+        uint8_t* cs = cstage + cw * kWgCStageBytes;
+        const int r = 16 * warp + lane / 4;
+#pragma unroll
+        for (int q = 0; q < kWgBN / 64; ++q) {
+          if (tid == 0) bulk_wait_read<0>();     // the staging is free
+          named_sync(1 + cw, 128);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * q + jj;
+            const int box = jj / 4, chunk = 2 * (jj % 4) + (lane % 4) / 2;
+            uint8_t* p = cs + box * kWgCBoxBytes +
+                         ((chunk ^ (lane / 4)) * 16) + 8 * (lane % 2);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(p + (r + 8 * h) * 128) =
+                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+          fence_proxy_async();     // the writes, visible to the TMA store
+          named_sync(1 + cw, 128);
+          if (tid == 0) {
+            tma_store_2d(&map_c, cs, col0 + 64 * q, row0 + 64 * cw);
+            tma_store_2d(&map_c, cs + kWgCBoxBytes,
+                         col0 + 64 * q + kWgCBoxCols, row0 + 64 * cw);
+            bulk_commit();
+          }
+        }
+        continue;
+      }
+      const int r0 = row0 + 64 * cw + 16 * warp + lane / 4;
+      const int cb = col0 + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < kWgBN / 8; ++j) {
+        const int gc = cb + 8 * j;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gr = r0 + 8 * h;
+          if (gr >= m || gc >= n) continue;
+          float* p = c + (size_t)gr * ldc + gc;
+          const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+          if (vec2 && gc + 1 < n) {
+            *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+          } else {
+            p[0] = x0;
+            if (gc + 1 < n) p[1] = x1;
+          }
+        }
+      }
+    }
+    if (tid == 0) bulk_wait_all();     // the TMA stores are done
+  }
+}
+
+// K4's routes: f32 FMA, bf16 mma.sync, bf16 wgmma + TMA
+enum MatmulRoute { kRouteF32 = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
+
+// TMA takes a bf16 operand whose base is 16-byte aligned and whose row
+// stride is a multiple of 8 elements and no shorter than its rows
+bool tma_ok(const void* p, int ld, int cols) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0 &&
+         ld >= cols;
+}
+
+int sm_count() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+cudaError_t launch_wgmma(const void* a, int lda, const void* b, int ldb,
+                         float* c, int ldc, int m, int n, int k,
+                         cudaStream_t stream) {
+  CUtensorMap map_a, map_b, map_c{};
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t e = conflux_wgmma::make_map(&map_a, bf, 2, a, m, k, lda,
+                                          kWgBM, kWgBK);
+  if (e == cudaSuccess)
+    e = conflux_wgmma::make_map(&map_b, bf, 2, b, k, n, ldb, kWgBK, 64);
+  // C through TMA stores where TMA takes it, else from the registers
+  const bool tma_c = reinterpret_cast<uintptr_t>(c) % 16 == 0 &&
+                     ldc % 4 == 0 && ldc >= n;
+  if (e == cudaSuccess && tma_c)
+    e = conflux_wgmma::make_map(&map_c, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                c, m, n, ldc, 64, kWgCBoxCols);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(matmul_wgmma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kWgSmem));
+  if (e != cudaSuccess) return e;
+  const long long tiles_m = (m + kWgBM - 1) / kWgBM;
+  const long long tiles_n = (n + kWgBN - 1) / kWgBN;
+  if (tiles_m * tiles_n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long tiles = tiles_m * tiles_n;
+  const int sms = sm_count();
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  matmul_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
+      map_a, map_b, map_c, tma_c, c, ldc, m, n, k,
+      static_cast<int>(tiles_m), static_cast<int>(tiles_n));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -442,44 +762,47 @@ int conflux_sub_matmul_bigk(const void* r, int ldr, void* out, int ldo,
 
 // C = A @ B on `stream`, C [m, n] float32 with row stride ldc; A [m, k]
 // and B [k, n] both float32 (bf16 == 0) or both bfloat16 (bf16 == 1).
+// *route receives the kernel launched: 0 the f32 FMA tile, 1 bf16
+// mma.sync, 2 bf16 wgmma + TMA (both operands TMA-aligned, tma_ok).
 // Returns 0 or a cudaError_t code; never synchronises.
 int conflux_matmul(const void* a, int lda, const void* b, int ldb, float* c,
-                   int ldc, int m, int n, int k, int bf16, void* stream) {
+                   int ldc, int m, int n, int k, int bf16, void* stream,
+                   int* route) {
   if (m < 1 || n < 1 || k < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
-  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
-  const uintptr_t pc = reinterpret_cast<uintptr_t>(c);
+  if (bf16 && tma_ok(a, lda, k) && tma_ok(b, ldb, n)) {
+    *route = kRouteWgmma;
+    return launch_wgmma(a, lda, b, ldb, c, ldc, m, n, k, s);
+  }
   if (bf16) {
+    *route = kRouteMmaSync;
     const long long gm = (m + kHBM - 1) / kHBM, gn = (n + kHBN - 1) / kHBN;
     if (gm > 65535 || gn > 0x7fffffffLL) return cudaErrorInvalidValue;
     const dim3 grid(static_cast<unsigned>(gn), static_cast<unsigned>(gm));
-    const bool vec = pa % 16 == 0 && pb % 16 == 0 && lda % 8 == 0 &&
-                     ldb % 8 == 0;
-    const uint16_t* ua = static_cast<const uint16_t*>(a);
-    const uint16_t* ub = static_cast<const uint16_t*>(b);
-    if (vec)
-      matmul_bf16_kernel<true><<<grid, kHThreads, 0, s>>>(ua, lda, ub, ldb,
-                                                          c, ldc, m, n, k);
-    else
-      matmul_bf16_kernel<false><<<grid, kHThreads, 0, s>>>(ua, lda, ub, ldb,
-                                                           c, ldc, m, n, k);
+    matmul_bf16_kernel<<<grid, kHThreads, 0, s>>>(
+        static_cast<const uint16_t*>(a), lda,
+        static_cast<const uint16_t*>(b), ldb, c, ldc, m, n, k);
     return cudaGetLastError();
   }
+  *route = kRouteF32;
   const long long gm = (m + kF32BM - 1) / kF32BM;
   const long long gn = (n + kF32BN - 1) / kF32BN;
   if (gm > 65535 || gn > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(gn), static_cast<unsigned>(gm));
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+  const uintptr_t pc = reinterpret_cast<uintptr_t>(c);
   const bool vec = pa % 16 == 0 && pb % 16 == 0 && pc % 16 == 0 &&
                    lda % 4 == 0 && ldb % 4 == 0 && ldc % 4 == 0;
   const float* fa = static_cast<const float*>(a);
   const float* fb = static_cast<const float*>(b);
-  if (vec)
-    matmul_f32_kernel<true><<<grid, kF32Threads, 0, s>>>(fa, lda, fb, ldb, c,
-                                                         ldc, m, n, k);
-  else
-    matmul_f32_kernel<false><<<grid, kF32Threads, 0, s>>>(fa, lda, fb, ldb,
-                                                          c, ldc, m, n, k);
+  auto kernel = vec ? matmul_f32_kernel<true> : matmul_f32_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kF32Smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kF32Threads, kF32Smem, s>>>(fa, lda, fb, ldb, c, ldc, m, n,
+                                              k);
   return cudaGetLastError();
 }
 

@@ -29,7 +29,12 @@ from conflux_tpu_torch.ops.gemm import check_matmul, check_mode
 # launches it; chip_smoke.py resets and reads them
 SCHUR_UPDATE_LAUNCHES = 0       # K3
 SUB_MATMUL_BIGK_LAUNCHES = 0    # K2 (its split-K sum included)
-MATMUL_LAUNCHES = 0             # K4
+MATMUL_LAUNCHES = 0             # K4, every route
+MATMUL_WGMMA_LAUNCHES = 0       # K4 bf16 on TMA-aligned operands: wgmma
+MATMUL_MMA_SYNC_LAUNCHES = 0    # K4 bf16 on other operands: mma.sync
+
+# conflux_matmul's routes (bigk_gemm.cu, MatmulRoute); 0 is the f32 tile
+_ROUTE_MMA_SYNC, _ROUTE_WGMMA = 1, 2
 
 _lib = None
 _bigk_lib = None
@@ -65,7 +70,8 @@ def _load_bigk() -> ctypes.CDLL:
         lib.conflux_sub_matmul_bigk_splits.restype = i
         lib.conflux_sub_matmul_bigk_smem_bytes.argtypes = []
         lib.conflux_sub_matmul_bigk_smem_bytes.restype = i
-        lib.conflux_matmul.argtypes = [p, i, p, i, p, i, i, i, i, i, p]
+        lib.conflux_matmul.argtypes = [p, i, p, i, p, i, i, i, i, i, p,
+                                       ctypes.POINTER(i)]
         lib.conflux_matmul.restype = i
         lib.conflux_bigk_gemm_error_string.argtypes = [i]
         lib.conflux_bigk_gemm_error_string.restype = ctypes.c_char_p
@@ -187,9 +193,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = a @ b on the card with a float32 result: a [m, k] and b [k, n]
     both float32 (IEEE fp32 FMA products) or both bfloat16 (tensor cores,
     fp32 accumulation), on one CUDA device with unit column stride (any
-    row stride). With k = 0 the result is zeros and nothing is
-    launched."""
-    global MATMUL_LAUNCHES
+    row stride). bf16 operands with 16-byte-aligned bases and row strides
+    that are multiples of 8 take the wgmma + TMA kernel, others the
+    mma.sync one; the kernel chooses and reports the route. With k = 0 the
+    result is zeros and nothing is launched."""
+    global MATMUL_LAUNCHES, MATMUL_WGMMA_LAUNCHES, MATMUL_MMA_SYNC_LAUNCHES
     check_matmul(a, b)
     _check_2d("a", a, a.device)
     _check_2d("b", b, a.device)
@@ -201,15 +209,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.zeros((m, n), dtype=torch.float32, device=a.device)
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     lib = _load_bigk()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.conflux_matmul(
             a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
             c.data_ptr(), c.stride(0), m, n, k,
-            int(a.dtype == torch.bfloat16), stream)
+            int(a.dtype == torch.bfloat16), stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError("matmul launch failed: "
                            + lib.conflux_bigk_gemm_error_string(err)
                            .decode())
     MATMUL_LAUNCHES += 1
+    if route.value == _ROUTE_WGMMA:
+        MATMUL_WGMMA_LAUNCHES += 1
+    elif route.value == _ROUTE_MMA_SYNC:
+        MATMUL_MMA_SYNC_LAUNCHES += 1
     return c

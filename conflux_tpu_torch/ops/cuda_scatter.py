@@ -23,8 +23,12 @@ from conflux_tpu_torch.ops.scatter import check_rows
 
 # launches of each kernel in this process, one per wrapper call that
 # launches it; chip_smoke.py resets and reads them
-SCATTER_ROWS_LAUNCHES = 0       # K5
-GATHER_ROWS_LAUNCHES = 0        # K6
+SCATTER_ROWS_LAUNCHES = 0       # K5, both routes
+GATHER_ROWS_LAUNCHES = 0        # K6, both routes
+# the launches of each on the TMA bulk-copy route (row starts, strides and
+# width multiples of 16 bytes); the others take the word copies
+SCATTER_ROWS_BULK_LAUNCHES = 0
+GATHER_ROWS_BULK_LAUNCHES = 0
 
 _lib = None
 
@@ -34,7 +38,8 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("row_move")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.conflux_row_move.argtypes = [i, p, ll, p, ll, p, i, ll, ll, p]
+        lib.conflux_row_move.argtypes = [i, p, ll, p, ll, p, i, ll, ll, p,
+                                         ctypes.POINTER(i)]
         lib.conflux_row_move.restype = i
         lib.conflux_row_move_error_string.argtypes = [i]
         lib.conflux_row_move_error_string.restype = ctypes.c_char_p
@@ -50,19 +55,23 @@ def _check_card(name: str, t: torch.Tensor, dev: torch.device):
 
 
 def _move(scatter: bool, src: torch.Tensor, dst: torch.Tensor,
-          index: torch.Tensor, m: int):
+          index: torch.Tensor, m: int) -> bool:
+    """Launch the row move; True if it took the bulk-copy route."""
     lib = _load()
     esize = src.element_size()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(dst.device):
         stream = torch.cuda.current_stream(dst.device).cuda_stream
         err = lib.conflux_row_move(
             int(scatter), src.data_ptr(), src.stride(0) * esize,
             dst.data_ptr(), dst.stride(0) * esize, index.data_ptr(),
-            index.shape[0], m, src.shape[1] * esize, stream)
+            index.shape[0], m, src.shape[1] * esize, stream,
+            ctypes.byref(route))
     if err != 0:
         raise RuntimeError(("scatter_rows" if scatter else "gather_rows")
                            + " launch failed: "
                            + lib.conflux_row_move_error_string(err).decode())
+    return route.value == 1
 
 
 def scatter_rows(R: torch.Tensor, src: torch.Tensor,
@@ -70,7 +79,7 @@ def scatter_rows(R: torch.Tensor, src: torch.Tensor,
     """R[slots[i], :] = src[i, :] on the card, in place; returns R. R and
     src float32 or bfloat16 with unit column stride (any row stride);
     slots int64, unique and in [0, m). src must not overlap R."""
-    global SCATTER_ROWS_LAUNCHES
+    global SCATTER_ROWS_LAUNCHES, SCATTER_ROWS_BULK_LAUNCHES
     check_rows(R, slots, src)
     _check_card("R", R, R.device)
     _check_card("src", src, R.device)
@@ -78,7 +87,7 @@ def scatter_rows(R: torch.Tensor, src: torch.Tensor,
         raise ValueError("slots must be contiguous")
     if slots.shape[0] == 0 or R.shape[1] == 0:
         return R
-    _move(True, src, R, slots, R.shape[0])
+    SCATTER_ROWS_BULK_LAUNCHES += _move(True, src, R, slots, R.shape[0])
     SCATTER_ROWS_LAUNCHES += 1
     return R
 
@@ -87,7 +96,7 @@ def gather_rows(R: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i, :] = R[idx[i], :] on the card, into a fresh contiguous
     tensor. R float32 or bfloat16 with unit column stride (any row
     stride); idx int64 in [0, m)."""
-    global GATHER_ROWS_LAUNCHES
+    global GATHER_ROWS_LAUNCHES, GATHER_ROWS_BULK_LAUNCHES
     check_rows(R, idx)
     _check_card("R", R, R.device)
     if not idx.is_contiguous():
@@ -96,6 +105,6 @@ def gather_rows(R: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                       device=R.device)
     if idx.shape[0] == 0 or R.shape[1] == 0:
         return out
-    _move(False, R, out, idx, R.shape[0])
+    GATHER_ROWS_BULK_LAUNCHES += _move(False, R, out, idx, R.shape[0])
     GATHER_ROWS_LAUNCHES += 1
     return out

@@ -40,6 +40,14 @@ def timed_reps(fn: Callable, *args, reps: int = 3) -> Tuple[List[float], object]
     return times, out
 
 
-def median_ms(fn: Callable, *args, reps: int = 10) -> float:
-    """Median device time of `reps` runs after one warm-up."""
-    return statistics.median(timed_reps(fn, *args, reps=reps)[0])
+def per_call_ms(fn: Callable, *args, calls: int = 10, reps: int = 5) -> float:
+    """A kernel's device time: after one warm-up, `calls` calls of
+    fn(*args) back to back between two events, so the host's launch work
+    overlaps the device's as in a path's loop; the median over `reps` such
+    runs of their time divided by `calls`."""
+    def run():
+        for _ in range(calls - 1):
+            fn(*args)
+        return fn(*args)
+
+    return statistics.median(timed_reps(run, reps=reps)[0]) / calls

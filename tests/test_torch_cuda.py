@@ -1,9 +1,9 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written kernels
 K1 (conflux_tpu_torch/csrc/rank1_panel.cu), K3 (csrc/schur_update.cu), K2
 and K4 (csrc/bigk_gemm.cu), K5 and K6 (csrc/row_move.cu) against their
-plain PyTorch versions, and the crout LU (all three compactions), the flat
-LU and the Cholesky end to end on the card. Without a card every test here
-skips.
+plain PyTorch versions, K4's and K5/K6's routes by their launch counters,
+and the crout LU (all three compactions), the flat LU and the Cholesky end
+to end on the card. Without a card every test here skips.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -316,3 +316,141 @@ def test_crout_compactions_on_card_meet_gate(card, compaction, precision):
     assert torch.equal(A, A0)
     assert torch.equal(torch.sort(perm).values, torch.arange(n, device=card))
     assert lu_residual_blocked(A, F, perm) <= 1e-6
+
+
+def _k4_counts():
+    return (cuda_gemm.MATMUL_LAUNCHES, cuda_gemm.MATMUL_WGMMA_LAUNCHES,
+            cuda_gemm.MATMUL_MMA_SYNC_LAUNCHES)
+
+
+def _k4_check(a, b, route):
+    """One K4 call on a and b: the route it must take ('f32', 'wgmma' or
+    'mma.sync') by the route counters, the result within the fp32
+    summation tolerance of the plain version, and the same bits from a
+    second call."""
+    before = _k4_counts()
+    got = cuda_gemm.matmul(a, b)
+    torch.cuda.synchronize()
+    step = {"f32": (1, 0, 0), "wgmma": (1, 1, 0), "mma.sync": (1, 0, 1)}
+    assert tuple(x - y for x, y in zip(_k4_counts(), before)) == step[route]
+    assert got.dtype == torch.float32
+    assert got.shape == (a.shape[0], b.shape[1])
+    ref = _matmul_t(a, b)
+    tol = 1e-5 * float(torch.mm(a.float().abs(), b.float().abs()).max())
+    assert float((got - ref).abs().max()) <= tol
+    assert torch.equal(got, cuda_gemm.matmul(a, b))
+
+
+# (m, n, k) with 16-byte-aligned contiguous operands: edges off the
+# wgmma kernel's [128, 256] tile and its K chunk of 64, K below one chunk,
+# a single 8-column box, and exactly one tile
+K4_ALIGNED = [(200, 264, 136), (64, 8, 16), (300, 40, 24), (128, 256, 64),
+              (1000, 520, 1000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", K4_ALIGNED)
+def test_k4_aligned_shapes_take_their_route(card, m, n, k, dtype):
+    g = torch.Generator(device=card).manual_seed(m + 7 * n + 13 * k)
+    a = torch.randn(m, k, generator=g, device=card).to(dtype)
+    b = torch.randn(k, n, generator=g, device=card).to(dtype)
+    _k4_check(a, b, "wgmma" if dtype == torch.bfloat16 else "f32")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_strided_views_take_their_route(card, dtype):
+    # column slices of wider buffers: row strides 520 and 272 (multiples
+    # of 8), offsets of 8 and 16 elements (16-byte aligned in bf16)
+    g = torch.Generator(device=card).manual_seed(21)
+    a = torch.randn(300, 520, generator=g, device=card).to(dtype)[:, 8:208]
+    b = torch.randn(200, 272, generator=g, device=card).to(dtype)[:, 16:266]
+    _k4_check(a, b, "wgmma" if dtype == torch.bfloat16 else "f32")
+
+
+@pytest.mark.parametrize("case", ["odd stride", "offset base"])
+def test_k4_unaligned_bf16_takes_mma_sync(card, case):
+    # TMA needs a 16-byte-aligned base and a row stride that is a multiple
+    # of 8 bf16: a contiguous [130, 333] A breaks the stride rule, a view
+    # one element into its buffer the base rule
+    g = torch.Generator(device=card).manual_seed(22)
+    bf = torch.bfloat16
+    if case == "odd stride":
+        a = torch.randn(130, 333, generator=g, device=card).to(bf)
+        b = torch.randn(333, 70, generator=g, device=card).to(bf)
+    else:
+        a = torch.randn(130, 264, generator=g, device=card).to(bf)[:, 1:]
+        b = torch.randn(263, 72, generator=g, device=card).to(bf)
+    _k4_check(a, b, "mma.sync")
+
+
+def _k6_counts():
+    return (cuda_scatter.GATHER_ROWS_LAUNCHES,
+            cuda_scatter.GATHER_ROWS_BULK_LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1536, 8, 13])
+def test_k6_narrow_column_slices_on_card(card, width, dtype):
+    # the split path's panel gather T[idx, k:k+w] at a small N: rows of
+    # `width` columns with row stride 4096; 16-byte-multiple widths take
+    # the bulk copies, 13 columns (52 or 26 bytes) the word copies
+    g = torch.Generator(device=card).manual_seed(width)
+    T = torch.randn(4096, 4096, generator=g, device=card).to(dtype)
+    view = T[:, 1536:1536 + width]
+    idx = torch.randperm(4096, generator=g, device=card)[:3000]
+    before = _k6_counts()
+    got = cuda_scatter.gather_rows(view, idx)
+    torch.cuda.synchronize()
+    bulk = width * T.element_size() % 16 == 0
+    assert tuple(x - y for x, y in zip(_k6_counts(), before)) == (1, bulk)
+    assert torch.equal(got, _gather_rows_t(view, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [512, 13])
+def test_k5_k6_skip_indices_outside_rows(card, width, dtype):
+    # an index outside [0, m) moves nothing and faults nothing, on both
+    # routes: the gather leaves its output row unwritten, the scatter
+    # leaves R as it was
+    m = 1000
+    g = torch.Generator(device=card).manual_seed(23 + width)
+    R = torch.randn(m, width, generator=g, device=card).to(dtype)
+    idx = torch.randperm(m, generator=g, device=card)[:64]
+    idx[5], idx[40] = -1, m
+    keep = torch.ones(64, dtype=torch.bool, device=card)
+    keep[5] = keep[40] = False
+    out = cuda_scatter.gather_rows(R, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out[keep], R[idx[keep]])
+    out.fill_(7.0)
+    assert cuda_scatter._move(False, R, out, idx, m) == (
+        width * R.element_size() % 16 == 0)
+    torch.cuda.synchronize()
+    assert bool((out[~keep] == 7.0).all())
+    src = torch.randn(64, width, generator=g, device=card).to(dtype)
+    want = R.clone()
+    want[idx[keep]] = src[keep]
+    before = (cuda_scatter.SCATTER_ROWS_LAUNCHES,
+              cuda_scatter.SCATTER_ROWS_BULK_LAUNCHES)
+    assert cuda_scatter.scatter_rows(R, src, idx) is R
+    torch.cuda.synchronize()
+    assert cuda_scatter.SCATTER_ROWS_LAUNCHES == before[0] + 1
+    assert cuda_scatter.SCATTER_ROWS_BULK_LAUNCHES == before[1] + (
+        width * R.element_size() % 16 == 0)
+    assert torch.equal(R, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_push_up_rows_on_card(card, dtype):
+    # swap's push-up at a small N: whole rows of an [N, N] R, scattered to
+    # unique slots, bit for bit, on the bulk route
+    g = torch.Generator(device=card).manual_seed(24)
+    R = torch.randn(2048, 2048, generator=g, device=card).to(dtype)
+    src = torch.randn(256, 2048, generator=g, device=card).to(dtype)
+    slots = torch.randperm(2048, generator=g, device=card)[:256]
+    want = _scatter_rows_t(R.clone(), src, slots)
+    before = cuda_scatter.SCATTER_ROWS_BULK_LAUNCHES
+    assert cuda_scatter.scatter_rows(R, src, slots) is R
+    torch.cuda.synchronize()
+    assert cuda_scatter.SCATTER_ROWS_BULK_LAUNCHES == before + 1
+    assert torch.equal(R, want)
