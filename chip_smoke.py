@@ -14,12 +14,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      gather (row_move.cu);
   3. K1 vs plain: K1 against its plain PyTorch version on the same CUDA
      inputs, in unforced, forced and finish modes, at the main path's
-     block shapes plus a ragged one with a masked lane, and forced at the
+     block shapes plus a ragged one with a masked lane, forced at the
      flat and Cholesky paths' [128, 1536] and [64, 1536] tile blocks with
-     first pivots j0 > 0;
-  4. K3 vs plain: K3 against its plain PyTorch version on the same CUDA
-     inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's first and a
-     mid-run trailing update and at a ragged span;
+     first pivots j0 > 0 (the tile route), and at the cluster route's
+     widest block and 128 lanes more (the grid route) at w = 128 and 64
+     in all three modes (forced ones on the tile route); every call
+     checked against the route counter it must move;
+  4. K3 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
+     SYNCS instructions; then K3 against its plain PyTorch version on the
+     same CUDA inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's
+     first and a mid-run trailing update and at a ragged span, each call
+     checked against its route counter (split pass + wgmma);
   5. K2 vs plain: K2 against its plain version in the three modes at the
      crout path's panel updates (k = 1536, 15360, 30720), its pivot-row
      refresh at k = 15360 and a ragged shape, with TFLOP/s;
@@ -55,8 +60,11 @@ before the last but one is a JSON object with each kernel's numbers: its
 `launches` are summed over the main paths (each one warm-up and REPS
 timed factorizations), and `launches_by_path` gives each path's count;
 K4, which no path runs (no path of the JAX package calls matmul_pallas),
-counts the launches of its own phase. `launches_by_route` splits K4's by
-route and K5's and K6's into TMA bulk copies and word copies. `bound_ms` is the least time the card could take for the kernel's
+counts the launches of its own phase. `launches_by_route` splits K1's
+into the cluster, grid and tile routes, K3's into its one route (split pass +
+wgmma), K4's by route and K5's and K6's into TMA bulk copies and word
+copies; K1's per route are checked per path against counts derived from
+the step loops. `bound_ms` is the least time the card could take for the kernel's
 representative call, from this run's shapes. The line before the last is
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
@@ -110,6 +118,42 @@ PATH_LAUNCHES = {
     "split": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
               "gather_rows": K6_SPLIT},
 }
+def k1_blocks(path: str):
+    """(w, m, forced) of every K1 block of one N, V factorization of
+    `path`, from its step loop: step k factors a panel of w = min(V, N - k)
+    columns over the m = N - k live rows in 128-wide blocks; flat, swap
+    and split then refactor the w gathered pivot rows, forced, in [128, w]
+    blocks; Cholesky factors each [w, w] diagonal tile, forced, in [64, w]
+    blocks."""
+    blocks = []
+    for k in range(0, N, V):
+        w = min(V, N - k)
+        if path == "cholesky":
+            blocks += [(64, w, True)] * (w // 64)
+            continue
+        blocks += [(128, N - k, False)] * (w // 128)
+        if path != "crout":
+            blocks += [(128, w, True)] * (w // 128)
+    return blocks
+
+
+K1_ROUTES = ("cluster", "grid", "tile")
+
+
+def k1_route_launches(route) -> dict:
+    """K1's launches per factorization of each path on each route, where
+    route(w, m, forced) names the route a block takes on this card."""
+    out = {}
+    for path in PATH_LAUNCHES:
+        blocks = k1_blocks(path)
+        if len(blocks) != PATH_LAUNCHES[path]["rank1_panel"]:
+            fail(f"{path}: {len(blocks)} K1 blocks from the step loop, "
+                 f"{PATH_LAUNCHES[path]['rank1_panel']} expected")
+        taken = [route(*b) for b in blocks]
+        out[path] = {f"rank1_panel {r}": taken.count(r) for r in K1_ROUTES}
+    return out
+
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense) for the
 # bound_ms of each kernel: device memory, bf16 tensor cores, fp32 FMA
 HBM_BYTES_S = 3.35e12
@@ -246,9 +290,9 @@ def phase_build():
                 print(f"  {name}: " + line.strip())
     print(f"  schur_update: dynamic shared memory "
           f"{cuda_gemm._load().conflux_schur_update_smem_bytes()} bytes "
-          f"per CTA, sub_matmul_bigk "
+          f"per CTA ('high'), sub_matmul_bigk "
           f"{cuda_gemm._load_bigk().conflux_sub_matmul_bigk_smem_bytes()} "
-          f"(rank1_panel: up to 200 KB, sized per call)")
+          f"(rank1_panel: sized per call, up to the card's limit)")
 
 
 def phase_k1():
@@ -264,6 +308,14 @@ def phase_k1():
              for mode in ("unforced", "forced", "finish")]
     cases += [(w, m, "forced", j0, 7000 + ti)
               for ti, (w, m, j0) in enumerate(FORCED_TILES)]
+    # the cluster route's widest block and 128 lanes more (grid route) at
+    # both block widths, in all three modes (forced with j0 = w)
+    cases += [(w, cuda_panel.cluster_max_m(w) + past, mode,
+               w if mode == "forced" else 0, 8000 + w + past + len(mode))
+              for w in (128, 64) for past in (0, 128)
+              for mode in ("unforced", "forced", "finish")]
+    counters = ("LAUNCHES", "LAUNCHES_CLUSTER", "LAUNCHES_GRID",
+                "LAUNCHES_TILE")
     rows = []
     for w, m, mode, j0, seed in cases:
         rng = np.random.default_rng(seed)
@@ -286,8 +338,16 @@ def phase_k1():
         def kernel():
             return cuda_panel.rank1_block_t(Mt, av, forced, j0, finish)
 
-        ref, got = plain(), kernel()
+        ref = plain()
+        before = [getattr(cuda_panel, c) for c in counters]
+        got = kernel()
         torch.cuda.synchronize()
+        route = cuda_panel.route(w, m, forced)
+        moved = tuple(getattr(cuda_panel, c) - b
+                      for c, b in zip(counters, before))
+        if moved != (1,) + tuple(int(route == r) for r in K1_ROUTES):
+            fail(f"K1 [{w}, {m}] {mode}: route counters moved {moved}, "
+                 f"expected the {route} route")
         piv_ok = torch.equal(ref[2], got[2].long())
         ok_ok = torch.equal(ref[3], got[3] > 0)
         av_ok = torch.equal(ref[1], got[1])
@@ -308,7 +368,7 @@ def phase_k1():
         # divisions in fp32
         bound = _bound(1.0 * w * (w - 1) * m + w * m,
                        4.0 * (2 * w * m + 2 * m) + 8.0 * w, FP32_FLOP_S)
-        tag = f"K1 [{w}, {m}] {mode} j0={j0}"
+        tag = f"K1 [{w}, {m}] {mode} j0={j0} ({route} route)"
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
         print(f"{tag}: pivots equal {piv_ok}, ok equal {ok_ok}, avail equal "
               f"{av_ok}, max|diff| {diff:.3e} (max|ref| {scale:.3e}, rel "
@@ -320,7 +380,7 @@ def phase_k1():
             fail(f"{tag}: pivots/ok/avail disagree")
         if not diff <= KERNEL_TOL * scale:
             fail(f"{tag}: max|diff| {diff} > {KERNEL_TOL} * {scale}")
-        rows.append({"shape": (w, m), "mode": mode, "j0": j0,
+        rows.append({"shape": (w, m), "mode": mode, "j0": j0, "route": route,
                      "max_abs_err": diff, "ms": t_k, "plain_ms": t_p,
                      "library_ms": t_l, "bound_ms": bound[0],
                      "bound_by": bound[1]})
@@ -382,6 +442,10 @@ def phase_k3(medium_bf16: bool):
     from conflux_tpu_torch.ops.gemm import MODES, _schur_update_t
     from conflux_tpu_torch.timing import per_call_ms
 
+    # every template instance of the product (three modes) holds wgmma
+    _sass_check([("schur_update", "schur_update_wgmma_kernel",
+                  ("HGMMA", "UTMALDG", "SYNCS"), True)])
+    counters = ("SCHUR_UPDATE_LAUNCHES", "SCHUR_UPDATE_WGMMA_LAUNCHES")
     rows = []
     for si, (tag, m, ncols, k, c0, c1) in enumerate(K3_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(500 + si)
@@ -392,8 +456,14 @@ def phase_k3(medium_bf16: bool):
         for mode in ("high", "bf16", "bf16out"):
             R0 = R32.to(torch.bfloat16) if mode == "bf16out" else R32
             ref = _schur_update_t(R0.clone(), A, B, c0, mode, c1)
+            before = [getattr(cuda_gemm, c) for c in counters]
             got = cuda_gemm.schur_update(R0.clone(), A, B, c0, mode, c1)
             torch.cuda.synchronize()
+            moved = tuple(getattr(cuda_gemm, c) - b
+                          for c, b in zip(counters, before))
+            if moved != (1, 1):
+                fail(f"K3 {tag} {mode}: route counters moved {moved}, "
+                     "expected the wgmma route")
             outside = (torch.equal(got[:, :c0], R0[:, :c0])
                        and torch.equal(got[:, c1:], R0[:, c1:]))
             d = (got[:, c0:c1].float() - ref[:, c0:c1].float()).abs()
@@ -507,11 +577,11 @@ def phase_k2(medium_bf16: bool):
     return rows
 
 
-def _sass_check():
-    """The wgmma kernel of the built K4 library must hold wgmma (HGMMA),
-    TMA loads (UTMALDG) and mbarrier operations (SYNCS) in its SASS, by
-    the CUDA toolkit's cuobjdump; the bulk row-move kernel's bulk copies
-    (UBLKCP) are printed beside them."""
+def _sass_check(entries):
+    """Each (library, kernel, opcodes, required) entry: count the opcodes
+    in the kernel's SASS in the built library, by the CUDA toolkit's
+    cuobjdump, and fail where a required one is missing (wgmma is HGMMA,
+    TMA loads UTMALDG, mbarrier operations SYNCS, bulk copies UBLKCP)."""
     import os
 
     from conflux_tpu_torch.ops import _build
@@ -519,24 +589,19 @@ def _sass_check():
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         fail(f"cuobjdump not found beside nvcc ({cuobjdump})")
-    found = {}
-    for lib, kernel, want in (("bigk_gemm", "matmul_wgmma_kernel",
-                               ("HGMMA", "UTMALDG", "SYNCS")),
-                              ("row_move", "bulk_move_kernel",
-                               ("UBLKCP", "SYNCS"))):
+    for lib, kernel, want, required in entries:
         sass = subprocess.run(
             [cuobjdump, "--dump-sass", str(_build._lib_path(lib))],
             capture_output=True, text=True, check=True).stdout
-        body = ""
+        counts = {op: 0 for op in want}
         for part in sass.split("Function : ")[1:]:
             if kernel in part.splitlines()[0]:
-                body = part
-        counts = {op: body.count(op) for op in want}
-        found[kernel] = counts
+                for op in want:
+                    counts[op] += part.count(op)
         print(f"SASS of {kernel} ({lib}): {counts} instructions")
-    missing = [op for op, n in found["matmul_wgmma_kernel"].items() if n == 0]
-    if missing:
-        fail(f"the wgmma kernel's SASS lacks {missing}")
+        missing = [op for op, n in counts.items() if n == 0]
+        if required and missing:
+            fail(f"the SASS of {kernel} lacks {missing}")
 
 
 def phase_k4():
@@ -546,7 +611,10 @@ def phase_k4():
     from conflux_tpu_torch.ops.gemm import _matmul_t
     from conflux_tpu_torch.timing import per_call_ms
 
-    _sass_check()
+    _sass_check([("bigk_gemm", "matmul_wgmma_kernel",
+                  ("HGMMA", "UTMALDG", "SYNCS"), True),
+                 ("row_move", "bulk_move_kernel", ("UBLKCP", "SYNCS"),
+                  False)])
     counters = ("MATMUL_LAUNCHES", "MATMUL_WGMMA_LAUNCHES",
                 "MATMUL_MMA_SYNC_LAUNCHES")
     # the route counters each call must move: f32 FMA, bf16 on TMA-aligned
@@ -797,6 +865,10 @@ def _counters():
             "scatter_rows": (cuda_scatter, "SCATTER_ROWS_LAUNCHES"),
             "gather_rows": (cuda_scatter, "GATHER_ROWS_LAUNCHES"),
             # routes, counted apart
+            "rank1_panel cluster": (cuda_panel, "LAUNCHES_CLUSTER"),
+            "rank1_panel grid": (cuda_panel, "LAUNCHES_GRID"),
+            "rank1_panel tile": (cuda_panel, "LAUNCHES_TILE"),
+            "schur_update wgmma": (cuda_gemm, "SCHUR_UPDATE_WGMMA_LAUNCHES"),
             "matmul wgmma": (cuda_gemm, "MATMUL_WGMMA_LAUNCHES"),
             "matmul mma.sync": (cuda_gemm, "MATMUL_MMA_SYNC_LAUNCHES"),
             "scatter_rows bulk": (cuda_scatter,
@@ -832,6 +904,16 @@ def _timed_path(fn, *args):
     return times, per_run, out
 
 
+def _path_want(path: str) -> dict:
+    """Launches per factorization of `path`: each kernel's, K1's per route
+    (ROUTE_LAUNCHES, derived from the step loop once the card's cluster
+    route is known) and K3's on its wgmma route."""
+    want = {k: PATH_LAUNCHES[path].get(k, 0) for k in KERNELS}
+    want.update(ROUTE_LAUNCHES[path])
+    want["schur_update wgmma"] = want["schur_update"]
+    return want
+
+
 def _expect(per_run, want: dict, tag: str):
     for name, n in want.items():
         got = [c[name] for c in per_run]
@@ -859,8 +941,7 @@ def phase_lu_path(smi: str, path: str):
                             compaction=compaction), A)
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
-    _expect(per_run, {k: PATH_LAUNCHES[path].get(k, 0) for k in KERNELS},
-            f"{path} N={N}")
+    _expect(per_run, _path_want(path), f"{path} N={N}")
     med = statistics.median(times)
     res = _check_factor(A, F, perm, f"{path} N={N} high")
     print(f"{path} path N={N} v={V} 'high' on {smi}: times ms "
@@ -887,8 +968,7 @@ def phase_cholesky_path(smi: str):
     times, per_run, L = _timed_path(lambda a: cholesky(a, V, "high"), A)
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
-    _expect(per_run, {k: PATH_LAUNCHES["cholesky"].get(k, 0)
-                      for k in KERNELS}, f"Cholesky N={N}")
+    _expect(per_run, _path_want("cholesky"), f"Cholesky N={N}")
     med = statistics.median(times)
     res = _check_cholesky(A, L, f"Cholesky N={N} high")
     print(f"Cholesky path N={N} v={V} 'high' on {smi}: times ms "
@@ -904,11 +984,21 @@ def _pick(table, **want):
     return next(r for r in table if all(r[k] == v for k, v in want.items()))
 
 
+ROUTE_LAUNCHES = {}     # K1's per route and path, set once the card is known
+
+
 def main() -> int:
     smi = phase_device()
     import torch
 
+    from conflux_tpu_torch.ops import cuda_panel
+
     phase_build()
+    ROUTE_LAUNCHES.update(k1_route_launches(cuda_panel.route))
+    print(f"K1 cluster route up to m = {cuda_panel.cluster_max_m(128)} at "
+          f"w = 128 and {cuda_panel.cluster_max_m(64)} at w = 64, forced "
+          f"blocks on the tile route; launches per factorization by route: "
+          f"{ROUTE_LAUNCHES}")
     k1_rows = phase_k1()
     medium_bf16 = phase_medium_probe()
     k3_rows = phase_k3(medium_bf16)
@@ -969,6 +1059,14 @@ def main() -> int:
             entry["launches_by_route"] = {
                 "wgmma": wgmma, "mma.sync": mma,
                 "f32": k4_counts["matmul"] - wgmma - mma}
+        if name == "rank1_panel":
+            entry["launches_by_route"] = {
+                r: sum(c[f"rank1_panel {r}"] for c in by_path.values())
+                for r in K1_ROUTES}
+        if name == "schur_update":
+            entry["launches_by_route"] = {
+                "wgmma": sum(c["schur_update wgmma"]
+                             for c in by_path.values())}
         if name in ("scatter_rows", "gather_rows"):
             bulk = sum(c[name + " bulk"] for c in by_path.values())
             entry["launches_by_route"] = {"bulk": bulk,

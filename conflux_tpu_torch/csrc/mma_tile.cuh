@@ -1,5 +1,5 @@
-// The tensor-core mainloop shared by K3 (schur_update.cu) and K2
-// (bigk_gemm.cu): one CTA of 8 warps accumulates a [kBM, kBN] tile of
+// The tensor-core mainloop of K2 (bigk_gemm.cu; K3 ran it until it moved
+// onto wgmma_split.cuh, where K2 is to follow): one CTA of 8 warps accumulates a [kBM, kBN] tile of
 // A @ B over a range of K, with f32 A and B in device memory, in fp32
 // registers, through mma.sync m16n8k16 on bf16 operands.
 //

@@ -2,8 +2,8 @@
 // Accelerator: tensor maps (host), mbarriers, TMA tile loads and stores,
 // bulk copies, named barriers, warpgroup register rebalancing and bf16
 // wgmma from 128-byte-swizzled shared memory. K4's bf16 kernel
-// (bigk_gemm.cu) and the row moves (row_move.cu) use them; K2 and K3 are
-// to move onto the same skeleton.
+// (bigk_gemm.cu), the row moves (row_move.cu) and K3's split-operand
+// mainloop (wgmma_split.cuh) use them; K2 is to move onto that mainloop.
 //
 // Layouts under CU_TENSOR_MAP_SWIZZLE_128B: a TMA box whose inner extent
 // is 128 bytes lands as rows of 128 bytes, one after another, the 16-byte

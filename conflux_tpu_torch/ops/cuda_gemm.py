@@ -2,7 +2,8 @@
 
 Counterpart of `conflux_tpu/ops/pallas_gemm.py`:
   * K3, `schur_update` (`schur_update_pallas`, kernels `_acc_kernel` and
-    `_acc_kernel_x3`): csrc/schur_update.cu;
+    `_acc_kernel_x3`, split `_split_hi_lo`): csrc/schur_update.cu, a split
+    pass and a wgmma + TMA product (csrc/wgmma_split.cuh);
   * K2, `sub_matmul_bigk` (`sub_matmul_pallas_bigk`, kernels
     `_acc_bigk_kernel` and `_acc_bigk_kernel_x3`): csrc/bigk_gemm.cu;
   * K4, `matmul` (`matmul_pallas`, kernel `_mm_kernel`): csrc/bigk_gemm.cu.
@@ -27,7 +28,8 @@ from conflux_tpu_torch.ops.gemm import check_matmul, check_mode
 
 # launches of each kernel in this process, one per wrapper call that
 # launches it; chip_smoke.py resets and reads them
-SCHUR_UPDATE_LAUNCHES = 0       # K3
+SCHUR_UPDATE_LAUNCHES = 0       # K3, every route
+SCHUR_UPDATE_WGMMA_LAUNCHES = 0  # K3 split pass + wgmma (every call)
 SUB_MATMUL_BIGK_LAUNCHES = 0    # K2 (its split-K sum included)
 MATMUL_LAUNCHES = 0             # K4, every route
 MATMUL_WGMMA_LAUNCHES = 0       # K4 bf16 on TMA-aligned operands: wgmma
@@ -35,6 +37,8 @@ MATMUL_MMA_SYNC_LAUNCHES = 0    # K4 bf16 on other operands: mma.sync
 
 # conflux_matmul's routes (bigk_gemm.cu, MatmulRoute); 0 is the f32 tile
 _ROUTE_MMA_SYNC, _ROUTE_WGMMA = 1, 2
+# conflux_schur_update's route (schur_update.cu, Route)
+_K3_ROUTE_WGMMA = 1
 
 _lib = None
 _bigk_lib = None
@@ -45,9 +49,15 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("schur_update")
         p, i = ctypes.c_void_p, ctypes.c_int
+        ll = ctypes.c_longlong
         lib.conflux_schur_update.argtypes = [p, i, i, p, i, p, i,
-                                             i, i, i, i, p]
+                                             i, i, i, i, p, ll, p,
+                                             ctypes.POINTER(i)]
         lib.conflux_schur_update.restype = i
+        lib.conflux_schur_update_workspace_bytes.argtypes = [i, i, i, i]
+        lib.conflux_schur_update_workspace_bytes.restype = ll
+        lib.conflux_split_hi_lo.argtypes = [p, i, i, i, p, p, i, p]
+        lib.conflux_split_hi_lo.restype = i
         lib.conflux_schur_update_smem_bytes.argtypes = []
         lib.conflux_schur_update_smem_bytes.restype = i
         lib.conflux_schur_update_error_string.argtypes = [i]
@@ -98,8 +108,11 @@ def schur_update(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor, c0: int,
 
     R [m, ncols] float32 ('high', 'bf16') or bfloat16 ('bf16out'),
     A [m, k] and B [k, c1 - c0] float32, all on one CUDA device with unit
-    column stride (any row stride). An empty update launches nothing."""
-    global SCHUR_UPDATE_LAUNCHES
+    column stride (any row stride). The kernel first splits A and B into
+    bf16 hi/lo copies in a workspace allocated here (freed into the
+    caching allocator after the launch, which orders its reuse on this
+    stream). An empty update launches nothing."""
+    global SCHUR_UPDATE_LAUNCHES, SCHUR_UPDATE_WGMMA_LAUNCHES
     passes = check_mode(R, mode)
     if not (R.is_cuda and A.device == R.device and B.device == R.device):
         raise ValueError("schur_update takes CUDA tensors on one device")
@@ -122,18 +135,53 @@ def schur_update(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor, c0: int,
         return R
     lib = _load()
     span = R[:, c0:c1]
+    route = ctypes.c_int(-1)
     with torch.cuda.device(R.device):
+        ws_bytes = lib.conflux_schur_update_workspace_bytes(m, c1 - c0, k,
+                                                            passes)
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=R.device)
         stream = torch.cuda.current_stream(R.device).cuda_stream
         err = lib.conflux_schur_update(
             span.data_ptr(), int(mode == "bf16out"), R.stride(0),
             A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0),
-            m, c1 - c0, k, passes, stream)
+            m, c1 - c0, k, passes, ws.data_ptr(), ws_bytes, stream,
+            ctypes.byref(route))
     if err != 0:
         raise RuntimeError("schur_update launch failed: "
                            + lib.conflux_schur_update_error_string(err)
                            .decode())
     SCHUR_UPDATE_LAUNCHES += 1
+    if route.value == _K3_ROUTE_WGMMA:
+        SCHUR_UPDATE_WGMMA_LAUNCHES += 1
     return R
+
+
+def split_hi_lo(x: torch.Tensor):
+    """K3's split pass alone on a 2-D float32 CUDA tensor (unit column
+    stride): (hi, lo) bf16 [rows, cols], views of copies whose row stride
+    is padded to 8 elements, as the kernel writes its operands. For
+    checking the pass against `ops/tri._split_hi_lo`; launches no product
+    and counts no K3 launch."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_hi_lo takes float32, not {x.dtype}")
+    _check_2d("x", x, x.device)
+    rows, cols = x.shape
+    lds = (cols + 7) // 8 * 8
+    hi = torch.empty((rows, lds), dtype=torch.bfloat16, device=x.device)
+    lo = torch.empty_like(hi)
+    if rows == 0 or cols == 0:
+        return hi[:, :cols], lo[:, :cols]
+    lib = _load()
+    with torch.cuda.device(x.device):
+        err = lib.conflux_split_hi_lo(
+            x.data_ptr(), x.stride(0), rows, cols, hi.data_ptr(),
+            lo.data_ptr(), lds, torch.cuda.current_stream(x.device)
+            .cuda_stream)
+    if err != 0:
+        raise RuntimeError("split_hi_lo launch failed: "
+                           + lib.conflux_schur_update_error_string(err)
+                           .decode())
+    return hi[:, :cols], lo[:, :cols]
 
 
 def sub_matmul_bigk_splits(m: int, n: int, k: int) -> int:

@@ -3,8 +3,12 @@
 Counterpart of `conflux_tpu/ops/pallas_panel.py` (`rank1_block_pallas_t`,
 kernel `_rank1_kernel`). The kernel is `csrc/rank1_panel.cu`, built by
 `nvcc` for `sm_90a` at first use (ops/_build.py) and called through
-ctypes on PyTorch's current stream. Its source note says what bounds it
-on the H100 and what the design does about that.
+ctypes on PyTorch's current stream. It has three routes, which the C
+entry picks from (w, m) and the mode and reports back: forced blocks up
+to w = 128 on the tile route (no exchange between CTAs), others on the
+cluster route up to `cluster_max_m(w)` lanes (one thread-block cluster)
+and on the grid route beyond (one persistent CTA per SM). Its source note
+says what bounds it on the H100 and what each route does about that.
 
 Its plain PyTorch version is `ops/panel._rank1_block_t`; `ops/panel
 ._rank1_dispatch` sends CPU tensors there and CUDA tensors here.
@@ -22,8 +26,16 @@ from conflux_tpu_torch.ops import _build
 # interface limit: wider blocks run from global memory through the L2)
 MAX_M = 65536
 
-# launches of the kernel in this process; chip_smoke.py resets and reads it
+# launches of the kernel in this process, in all and per route (the C
+# entry picks the route from (w, m) and the mode and reports it);
+# chip_smoke.py resets and reads them
 LAUNCHES = 0
+LAUNCHES_CLUSTER = 0    # one thread-block cluster, pushes between its CTAs
+LAUNCHES_GRID = 0       # one persistent CTA per SM, a grid barrier a column
+LAUNCHES_TILE = 0       # forced blocks: each CTA eliminates its lanes alone
+
+# conflux_rank1_panel's routes (rank1_panel.cu, Route)
+ROUTES = {1: "cluster", 2: "grid", 3: "tile"}
 
 _lib = None
 
@@ -34,14 +46,33 @@ def _load() -> ctypes.CDLL:
         lib = _build.load("rank1_panel")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conflux_rank1_panel.argtypes = [p, p, p, p, p, p, p,
-                                            i, i, i, i, p]
+                                            i, i, i, i, p,
+                                            ctypes.POINTER(i)]
         lib.conflux_rank1_panel.restype = i
+        lib.conflux_rank1_panel_cluster_max_m.argtypes = [i]
+        lib.conflux_rank1_panel_cluster_max_m.restype = i
+        lib.conflux_rank1_panel_route.argtypes = [i, i, i]
+        lib.conflux_rank1_panel_route.restype = i
         lib.conflux_rank1_panel_scratch_floats.argtypes = [i]
         lib.conflux_rank1_panel_scratch_floats.restype = i
         lib.conflux_cuda_error_string.argtypes = [i]
         lib.conflux_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def cluster_max_m(w: int) -> int:
+    """The largest m whose unforced [w, m] block takes the cluster route on
+    the current card; wider blocks take the grid route."""
+    return _load().conflux_rank1_panel_cluster_max_m(w)
+
+
+def route(w: int, m: int, forced: bool) -> str:
+    """The route ('cluster', 'grid' or 'tile') a [w, m] block takes on the
+    current card: forced blocks up to w = 128 take the tile route, others
+    the cluster route up to cluster_max_m(w) lanes and the grid route
+    beyond."""
+    return ROUTES[_load().conflux_rank1_panel_route(w, m, int(forced))]
 
 
 def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
@@ -55,7 +86,7 @@ def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
     `finish` is accepted for the caller's sake and changes nothing: the
     straight elimination leaves every pivot lane holding its merged-factor
     values in all modes (unforced callers never read them)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_CLUSTER, LAUNCHES_GRID, LAUNCHES_TILE
     del finish
     if not Mt.is_cuda or avail_f.device != Mt.device:
         raise ValueError("rank1_block_t takes CUDA tensors on one device")
@@ -80,14 +111,23 @@ def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
     ok = torch.empty(w, dtype=torch.int32, device=dev)
     scratch = torch.empty(lib.conflux_rank1_panel_scratch_floats(w),
                           dtype=torch.float32, device=dev)
+    route_taken = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.conflux_rank1_panel(
             Mt.data_ptr(), avail_f.data_ptr(), out.data_ptr(),
             avail_o.data_ptr(), piv.data_ptr(), ok.data_ptr(),
-            scratch.data_ptr(), w, m, int(forced), j0, stream)
+            scratch.data_ptr(), w, m, int(forced), j0, stream,
+            ctypes.byref(route_taken))
     if err != 0:
         raise RuntimeError("rank1_panel launch failed: "
                            + lib.conflux_cuda_error_string(err).decode())
     LAUNCHES += 1
+    taken = ROUTES.get(route_taken.value)
+    if taken == "cluster":
+        LAUNCHES_CLUSTER += 1
+    elif taken == "grid":
+        LAUNCHES_GRID += 1
+    elif taken == "tile":
+        LAUNCHES_TILE += 1
     return out, avail_o, piv, ok

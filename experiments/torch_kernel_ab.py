@@ -1,23 +1,30 @@
-"""A/B of K4 (bigk_gemm.cu) and K5/K6 (row_move.cu) builds in one call.
+"""A/B of kernel builds in one call: K1 (rank1_panel.cu), K3
+(schur_update.cu), K4 (bigk_gemm.cu) and K5/K6 (row_move.cu).
 
     python3 -m experiments.torch_kernel_ab --lib old=_ab/old \
-        --lib new=conflux_tpu_torch/csrc [--lib name=dir ...] [--quick]
+        --lib new=conflux_tpu_torch/csrc [--lib name=dir ...] [--quick] \
+        [--only k1|k3|k4|rows]
 
-Each --lib names a directory holding a bigk_gemm.cu and/or a row_move.cu
-(with the csrc/ headers they include, or beside csrc/, whose headers are
-on the include path too). Every source is built by its own nvcc with the
-port's flags (ops/_build._FLAGS), all at once, into the gitignored
-_ab/build/, and loaded with ctypes. An earlier commit's sources go into a
-gitignored directory with `git show <commit>:conflux_tpu_torch/csrc/...`.
-Both C interfaces are taken: the present one, which reports the route
-through a last int* argument, and the earlier one, which had none.
+Each --lib names a directory holding some of those sources (with the
+csrc/ headers they include, or beside csrc/, whose headers are on the
+include path too). Every source is built by its own nvcc with the port's
+flags (ops/_build._FLAGS), all at once, into the gitignored _ab/build/,
+and loaded with ctypes. An earlier commit's sources go into a gitignored
+directory with `git show <commit>:conflux_tpu_torch/csrc/...`. Each
+entry point's present C interface is taken and, where it changed, the
+earlier one too (K1 and K4 report their route through a last int*
+argument that the earlier builds lack; the present K3 takes a workspace
+for its split operands, the earlier one none).
 
-Then, on the card, each build's kernels run at chip_smoke.py's shapes: K4
-at the three prof_pallas_gemm shapes for f32 and bf16, K5/K6 at the
-[32768, 32768] row moves and the split path's panel gather. Builds take
-turns per shape (a, b, ..., b, a), each timed as timing.per_call_ms
-(back-to-back calls between two events), and every result is compared
-with the plain version (K4 within 1e-5 of max(|A|@|B|), K5/K6 bit for
+Then, on the card, each build's kernels run at chip_smoke.py's shapes: K1
+at the main paths' blocks and the cluster/grid boundary, K3 at the flat
+LU's first and mid-run trailing updates in its three modes, K4 at the
+three prof_pallas_gemm shapes for f32 and bf16, K5/K6 at the [32768,
+32768] row moves and the split path's panel gather. Builds take turns per
+shape (a, b, ..., b, a), each timed as timing.per_call_ms (back-to-back
+calls between two events), and every result is compared with the plain
+version (K1: pivots equal and within 1e-4 of max|ref|; K3 and K4 within
+1e-5 of max(|A|@|B|), plus one bf16 ulp for K3 'bf16out'; K5/K6 bit for
 bit). Prints one line per shape and build, and the card's name and power
 limit.
 """
@@ -27,15 +34,28 @@ import ctypes
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_scatter
+from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel, cuda_scatter
 from conflux_tpu_torch.timing import per_call_ms
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "_ab" / "build"
 K4_SHAPES = ((16384, 512, 16384), (8192, 1024, 8192), (8192, 8192, 8192))
 N, V = 32768, 1536
+STEMS = ("rank1_panel", "schur_update", "bigk_gemm", "row_move")
+# K1 (w, m, mode, j0): the main paths' blocks (crout's first and a late
+# panel, a mid flat/swap/split panel, the forced tiles of flat's pivot
+# rows and Cholesky's potrf, with their last and their second first
+# pivots), a ragged block
+K1_CASES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
+            (128, 6656, "finish", 0), (128, 1536, "forced", 1408),
+            (64, 1536, "forced", 1472), (128, 1000, "unforced", 0),
+            (128, 1536, "forced", 128), (64, 1536, "forced", 64))
+# K3 (tag, m, ncols, k, c0, c1): chip_smoke's flat updates
+K3_SHAPES = (("first", 32768, 32768, 1536, 1536, 32768),
+             ("mid", 17408, 32768, 1536, 16896, 32768))
 
 
 def build(libs):
@@ -43,7 +63,7 @@ def build(libs):
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name, d in libs.items():
-        for stem in ("bigk_gemm", "row_move"):
+        for stem in STEMS:
             cu = Path(d) / f"{stem}.cu"
             if not cu.exists():
                 continue
@@ -115,6 +135,173 @@ def row_move_fn(lib, scatter: bool):
             call(R, out, idx, R.shape[0])
             return out
     return run
+
+
+def rank1_fn(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f = lib.conflux_rank1_panel
+    # the present interface; the earlier one, without the route pointer,
+    # ignores it under the C calling convention
+    f.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, ctypes.POINTER(i)]
+    f.restype = i
+    lib.conflux_rank1_panel_scratch_floats.argtypes = [i]
+    lib.conflux_rank1_panel_scratch_floats.restype = i
+    routes = {}
+
+    def run(Mt, av, forced, j0):
+        w, m = Mt.shape
+        out, avo = torch.empty_like(Mt), torch.empty_like(av)
+        piv = torch.empty(w, dtype=torch.int32, device="cuda")
+        ok = torch.empty(w, dtype=torch.int32, device="cuda")
+        scratch = torch.empty(lib.conflux_rank1_panel_scratch_floats(w),
+                              device="cuda")
+        route = ctypes.c_int(-1)
+        err = f(Mt.data_ptr(), av.data_ptr(), out.data_ptr(), avo.data_ptr(),
+                piv.data_ptr(), ok.data_ptr(), scratch.data_ptr(), w, m,
+                int(forced), j0, torch.cuda.current_stream().cuda_stream,
+                ctypes.byref(route))
+        if err:
+            raise RuntimeError(f"conflux_rank1_panel error {err}")
+        routes[(w, m)] = route.value
+        return out, avo, piv, ok
+    run.routes = routes
+    return run
+
+
+def schur_fn(lib):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f = lib.conflux_schur_update
+    split = hasattr(lib, "conflux_schur_update_workspace_bytes")
+    if split:
+        f.argtypes = [p, i, i, p, i, p, i, i, i, i, i, p, ll, p,
+                      ctypes.POINTER(i)]
+        lib.conflux_schur_update_workspace_bytes.argtypes = [i, i, i, i]
+        lib.conflux_schur_update_workspace_bytes.restype = ll
+    else:
+        f.argtypes = [p, i, i, p, i, p, i, i, i, i, i, p]
+    f.restype = i
+
+    def run(R, A, B, c0, mode, c1):
+        from conflux_tpu_torch.ops.gemm import MODES
+
+        passes = MODES[mode][1]
+        m, k, nt = R.shape[0], A.shape[1], c1 - c0
+        span = R[:, c0:c1]
+        args = [span.data_ptr(), int(mode == "bf16out"), R.stride(0),
+                A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), m, nt,
+                k, passes]
+        stream = torch.cuda.current_stream().cuda_stream
+        if split:
+            nb = lib.conflux_schur_update_workspace_bytes(m, nt, k, passes)
+            ws = torch.empty(nb, dtype=torch.uint8, device="cuda")
+            route = ctypes.c_int(-1)
+            err = f(*args, ws.data_ptr(), nb, stream, ctypes.byref(route))
+        else:
+            err = f(*args, stream)
+        if err:
+            raise RuntimeError(f"conflux_schur_update error {err}")
+        return R
+    return run
+
+
+def ab_k1(libs, quick, unchecked=False):
+    from conflux_tpu_torch.ops.panel import _rank1_block_t
+
+    names = [n for n in libs if "rank1_panel" in libs[n]]
+    fns = {n: rank1_fn(libs[n]["rank1_panel"]) for n in names}
+    cases = [K1_CASES[i] for i in (0, 3, 6)] if quick else list(K1_CASES)
+    # the cluster route's widest block at w = 128 and 128 lanes more
+    edge = cuda_panel.cluster_max_m(128)
+    cases += [(128, edge, "finish", 0), (128, edge + 128, "finish", 0)]
+    for w, m, mode, j0 in cases:
+        rng = np.random.default_rng(w + m + j0)
+        A = rng.standard_normal((w, m)).astype(np.float32)
+        forced = mode == "forced"
+        if forced:
+            A[np.arange(w), j0 + np.arange(w)] += w
+        avail = np.ones((1, m), np.float32)
+        avail[0, :j0] = 0.0
+        Mt, av = torch.from_numpy(A).cuda(), torch.from_numpy(avail).cuda()
+        ref = _rank1_block_t(Mt, av, j0, forced, mode == "finish")
+        keep = torch.ones(m, dtype=torch.bool, device="cuda")
+        if mode == "unforced":
+            keep[ref[2]] = False
+        times = {nm: [] for nm in names}
+        for nm in turns(names):
+            got = fns[nm](Mt, av, forced, j0)
+            torch.cuda.synchronize()
+            diff = float((ref[0] - got[0])[:, keep].abs().max())
+            if not (torch.equal(ref[2], got[2].long())
+                    and diff <= 1e-4 * float(ref[0][:, keep].abs().max())):
+                msg = f"K1 {nm} [{w}, {m}] {mode}: disagrees ({diff})"
+                if not unchecked:
+                    raise SystemExit(msg)
+                print(msg + ", timed all the same (--unchecked)")
+            times[nm].append(per_call_ms(fns[nm], Mt, av, forced, j0))
+        t_w = per_call_ms(cuda_panel.rank1_block_t, Mt, av, forced, j0)
+        for nm in names:
+            best = min(times[nm])
+            route = cuda_panel.ROUTES.get(fns[nm].routes.get((w, m)),
+                                          "one route")
+            print(f"K1 [{w}, {m}] {mode:8s} j0={j0:<5d} {nm:8s} ({route}): "
+                  f"{[round(t, 4) for t in times[nm]]} ms, best {best:.4f} "
+                  f"ms ({best / w * 1e3:.2f} us per column); package "
+                  f"wrapper {t_w:.4f} ms")
+        del Mt, av, ref
+
+
+def ab_k3(libs, quick, unchecked=False):
+    from conflux_tpu_torch.ops.gemm import _schur_update_t
+
+    names = [n for n in libs if "schur_update" in libs[n]]
+    fns = {n: schur_fn(libs[n]["schur_update"]) for n in names}
+    shapes = K3_SHAPES[:1] if quick else K3_SHAPES
+    for si, (tag, m, ncols, k, c0, c1) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(500 + si)
+        A = torch.randn(m, k, generator=g, device="cuda")
+        B = torch.randn(k, c1 - c0, generator=g, device="cuda")
+        R32 = torch.randn(m, ncols, generator=g, device="cuda")
+        tol = 1e-5 * float(torch.mm(A.abs(), B.abs()).max())
+        # the package's split pass alone, on both operands (hi and lo)
+        t_split = (per_call_ms(cuda_gemm.split_hi_lo, A)
+                   + per_call_ms(cuda_gemm.split_hi_lo, B))
+        print(f"K3 {tag} split pass of A [{m}, {k}] and B [{k}, {c1 - c0}] "
+              f"into hi and lo (package): {t_split:.3f} ms")
+        for mode in ("high", "bf16", "bf16out"):
+            R0 = R32.to(torch.bfloat16) if mode == "bf16out" else R32
+            ref = _schur_update_t(R0.clone(), A, B, c0, mode, c1)[:, c0:c1]
+            ref = ref.float()
+            times = {nm: [] for nm in names}
+            for nm in turns(names):
+                got = fns[nm](R0.clone(), A, B, c0, mode, c1)
+                torch.cuda.synchronize()
+                d = (got[:, c0:c1].float() - ref).abs()
+                if mode == "bf16out":
+                    _, e = torch.frexp(ref)
+                    ulp = torch.ldexp(torch.ones_like(ref), e - 8)
+                    bad = int((d > ulp + tol).sum())
+                else:
+                    bad = int((d > tol).sum())
+                if bad:
+                    msg = (f"K3 {nm} {tag} {mode}: {bad} elements off the "
+                           "plain version")
+                    if not unchecked:
+                        raise SystemExit(msg)
+                    print(msg + ", timed all the same (--unchecked)")
+                del got, d
+                Rw = R0.clone()
+                times[nm].append(per_call_ms(fns[nm], Rw, A, B, c0, mode, c1))
+                del Rw
+            flop = 2.0 * m * (c1 - c0) * k
+            for nm in names:
+                best = min(times[nm])
+                print(f"K3 {tag} [{m} x {c1 - c0}, k {k}] {mode:7s} "
+                      f"{nm:8s}: {[round(t, 3) for t in times[nm]]} ms, best "
+                      f"{best:.3f} ms ({flop / best / 1e9:.1f} TFLOP/s of "
+                      f"A@B)")
+            del ref
+        del A, B, R32
+        torch.cuda.empty_cache()
 
 
 def sass_histogram(libs, kernel: str):
@@ -252,7 +439,9 @@ def host_overhead():
     R = torch.randn(64, 64, device="cuda")
     idx = torch.arange(16, device="cuda")
     a = torch.randn(64, 64, device="cuda").bfloat16()
-    cases = {"gather_rows": (cuda_scatter.gather_rows, (R, idx)),
+    av = torch.ones(1, 64, device="cuda")
+    cases = {"rank1_block_t": (cuda_panel.rank1_block_t, (R[:8].clone(), av)),
+             "gather_rows": (cuda_scatter.gather_rows, (R, idx)),
              "index_select": (torch.index_select, (R, 0, idx)),
              "matmul bf16": (cuda_gemm.matmul, (a, a)),
              "torch.mm bf16": (lambda x, y: torch.mm(
@@ -272,10 +461,17 @@ def host_overhead():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--lib", action="append", required=True,
-                    help="name=directory holding bigk_gemm.cu / row_move.cu")
+                    help="name=directory holding some of " + ", ".join(
+                        f"{s}.cu" for s in STEMS))
     ap.add_argument("--quick", action="store_true",
-                    help="one K4 shape and no 31232-row full gather")
-    ap.add_argument("--only", choices=("k4", "rows"))
+                    help="fewer shapes of each kernel")
+    ap.add_argument("--only", action="append",
+                    choices=("k1", "k3", "k4", "rows"),
+                    help="run only these kernels' A/B (repeatable)")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="K1, K3: time builds that disagree with the plain "
+                    "version (variants that leave out work, to attribute "
+                    "time)")
     ap.add_argument("--sass", action="append", default=[],
                     help="print each build's opcode counts of this kernel")
     args = ap.parse_args()
@@ -287,10 +483,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}")
-    if args.only != "rows":
-        ab_k4(libs, args.quick)
-    if args.only != "k4":
-        ab_rows(libs, args.quick)
+    only = set(args.only or ("k1", "k3", "k4", "rows"))
+    if "k1" in only:
+        ab_k1(libs, args.quick, args.unchecked)
+    if "k3" in only:
+        ab_k3(libs, args.quick, args.unchecked)
+    for key, fn in (("k4", ab_k4), ("rows", ab_rows)):
+        if key in only:
+            fn(libs, args.quick)
 
 
 if __name__ == "__main__":

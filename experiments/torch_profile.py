@@ -28,12 +28,16 @@ N, V, PRECISION = 32768, 1536, "high"
 REPS = 2
 # kernel-name substrings, first match wins
 GROUPS = (
-    ("K3 schur_update_kernel", ("schur_update_kernel",)),
+    ("K3 split pass + schur_update_wgmma_kernel",
+     ("schur_update_wgmma_kernel", "split_hi_lo_kernel")),
     ("K2 sub_matmul_bigk (+ split-K sum)", ("sub_matmul_bigk_kernel",
                                             "bigk_reduce_kernel")),
     ("K5 scatter_rows_kernel", ("scatter_rows_kernel",)),
     ("K6 gather_rows_kernel", ("gather_rows_kernel",)),
-    ("K1 rank1_panel_kernel", ("rank1_panel_kernel",)),
+    ("K5/K6 bulk_move_kernel (TMA bulk route)", ("bulk_move_kernel",)),
+    ("K1 rank1 grid route", ("rank1_grid_kernel",)),
+    ("K1 rank1 cluster route", ("rank1_cluster_kernel",)),
+    ("K1 rank1 tile route", ("rank1_tile_kernel",)),
     ("bf16 GEMMs (cuBLAS nvjet)", ("nvjet", "bf16", "s16816gemm")),
     ("fp32 GEMMs (cuBLAS, cutlass)", ("gemm", "sgemm", "xmma", "cutlass",
                                       "splitKreduce")),

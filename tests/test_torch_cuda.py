@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written kernels
 K1 (conflux_tpu_torch/csrc/rank1_panel.cu), K3 (csrc/schur_update.cu), K2
 and K4 (csrc/bigk_gemm.cu), K5 and K6 (csrc/row_move.cu) against their
-plain PyTorch versions, K4's and K5/K6's routes by their launch counters,
+plain PyTorch versions, K3's split pass against ops/tri._split_hi_lo bit
+for bit, the routes of K1, K3, K4 and K5/K6 by their launch counters,
 and the crout LU (all three compactions), the flat LU and the Cholesky end
 to end on the card. Without a card every test here skips.
 
@@ -24,6 +25,7 @@ from conflux_tpu_torch.ops.gemm import (
 )
 from conflux_tpu_torch.ops.panel import _rank1_block_t
 from conflux_tpu_torch.ops.scatter import _gather_rows_t, _scatter_rows_t
+from conflux_tpu_torch.ops.tri import _split_hi_lo
 from conflux_tpu_torch.validation import (
     cholesky_residual_blocked,
     lu_residual_blocked,
@@ -72,21 +74,91 @@ def test_kernel_matches_plain_on_card(card, w, m, mode, j0):
     Mt = torch.from_numpy(Mt).to(card)
     avail = torch.from_numpy(avail).to(card)
     forced, finish = mode == "forced", mode == "finish"
+    _k1_check(Mt, avail, mode, j0)
+
+
+def _k1_counts():
+    return (cuda_panel.LAUNCHES, cuda_panel.LAUNCHES_CLUSTER,
+            cuda_panel.LAUNCHES_GRID, cuda_panel.LAUNCHES_TILE)
+
+
+def _k1_check(Mt, avail, mode, j0, masked_read=True):
+    """One K1 call against its plain version: the route its counters show
+    (forced blocks up to w = 128 on the tile route; others on the cluster
+    route up to cluster_max_m(w) lanes, the grid route past it), pivots,
+    ok and avail equal, the block within a few fp32 roundings
+    (NaN where the plain version has NaN). masked_read=False leaves the
+    lanes masked on input out of the comparison: callers never read them,
+    and the plain version's one-hot products carry a NaN into them (NaN
+    times 0) where the kernel leaves them untouched."""
+    w, m = Mt.shape
+    forced, finish = mode == "forced", mode == "finish"
     ref = _rank1_block_t(Mt, avail, j0, forced, finish)
-    before = cuda_panel.LAUNCHES
+    before = _k1_counts()
     got = cuda_panel.rank1_block_t(Mt, avail, forced, j0, finish)
     torch.cuda.synchronize()
-    assert cuda_panel.LAUNCHES == before + 1
+    route = cuda_panel.route(w, m, forced)
+    assert route == ("tile" if forced and w <= 128 else
+                     "cluster" if m <= cuda_panel.cluster_max_m(w) else
+                     "grid")
+    assert tuple(a - b for a, b in zip(_k1_counts(), before)) == (
+        1, int(route == "cluster"), int(route == "grid"),
+        int(route == "tile"))
     assert torch.equal(ref[2], got[2].long())
     assert torch.equal(ref[3], got[3] > 0)
     assert torch.equal(ref[1], got[1])
-    keep = torch.ones(m, dtype=torch.bool, device=card)
+    keep = torch.ones(m, dtype=torch.bool, device=Mt.device)
     if mode == "unforced":
         keep[ref[2]] = False      # stale in the plain version, unread
-    # K1 applies the updates in another order than the two-level plain
-    # version: agreement to a few fp32 roundings
-    diff = (ref[0] - got[0])[:, keep].abs().max()
-    assert diff <= 1e-4 * ref[0][:, keep].abs().max()
+    if not masked_read:
+        keep &= avail[0] > 0
+    r, g = ref[0][:, keep], got[0][:, keep]
+    assert torch.equal(torch.isnan(r), torch.isnan(g))
+    fin = ~torch.isnan(r)
+    if bool(fin.any()):
+        # K1 applies the updates in another order than the two-level plain
+        # version: agreement to a few fp32 roundings
+        diff = (r[fin] - g[fin]).abs().max()
+        assert diff <= 1e-4 * r[fin].abs().max()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("w", [128, 64])
+@pytest.mark.parametrize("past", [0, 128])
+def test_k1_routes_at_their_boundary(card, w, mode, past):
+    # the largest block the cluster route takes, and 128 lanes more on the
+    # grid route; a masked lane, and forced blocks with j0 > 0
+    m = cuda_panel.cluster_max_m(w) + past
+    j0 = 3 * w if mode == "forced" else 0
+    Mt, avail = _block(m, w, mode, seed=m + w, j0=j0)
+    if j0 == 0:
+        avail[0, 17] = 0.0
+    _k1_check(torch.from_numpy(Mt).to(card), torch.from_numpy(avail).to(card),
+              mode, j0)
+
+
+@pytest.mark.parametrize("past", [0, 128])
+def test_k1_forced_wide_blocks_take_cluster_and_grid(card, past):
+    # forced blocks wider than the tile route takes (w = 160) run on the
+    # cluster route up to its widest block and on the grid route past it
+    w = 160
+    m = cuda_panel.cluster_max_m(w) + past
+    Mt, avail = _block(m, w, "forced", seed=m, j0=w)
+    _k1_check(torch.from_numpy(Mt).to(card), torch.from_numpy(avail).to(card),
+              "forced", w)
+
+
+@pytest.mark.parametrize("m", [1536, 40000])
+def test_k1_nan_ranks_highest_on_both_routes(card, m):
+    # a NaN in the first column of an available lane: both versions pick
+    # it as the first pivot, its multipliers are NaN, and every later
+    # column's scores are NaN, so the pivots go to the lowest available
+    # lanes in order
+    w = 128
+    Mt, avail = _block(m, w, "unforced", seed=m)
+    Mt[0, 777] = np.nan
+    _k1_check(torch.from_numpy(Mt).to(card), torch.from_numpy(avail).to(card),
+              "unforced", 0, masked_read=False)
 
 
 def test_kernel_wrapper_checks_its_inputs(card):
@@ -137,12 +209,23 @@ def test_k3_matches_plain_on_card(card, m, ncols, k, c0, c1, mode):
     R = torch.randn(m, ncols, generator=g, device=card)
     if mode == "bf16out":
         R = R.to(torch.bfloat16)
+    _k3_check(R, A, B, c0, c1, mode)
+
+
+def _k3_check(R, A, B, c0, c1, mode):
+    """One K3 call on a copy of R against the plain version: the wgmma
+    route by its counter, columns outside [c0, c1) unchanged, the span
+    within the fp32 summation tolerance (plus one bf16 ulp where R is
+    bf16)."""
     ref = _schur_update_t(R.clone(), A, B, c0, mode, c1)
-    before = cuda_gemm.SCHUR_UPDATE_LAUNCHES
+    before = (cuda_gemm.SCHUR_UPDATE_LAUNCHES,
+              cuda_gemm.SCHUR_UPDATE_WGMMA_LAUNCHES)
     got = R.clone()
     assert cuda_gemm.schur_update(got, A, B, c0, mode, c1) is got
     torch.cuda.synchronize()
-    assert cuda_gemm.SCHUR_UPDATE_LAUNCHES == before + 1
+    assert (cuda_gemm.SCHUR_UPDATE_LAUNCHES,
+            cuda_gemm.SCHUR_UPDATE_WGMMA_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
     assert torch.equal(got[:, :c0], R[:, :c0])
     assert torch.equal(got[:, c1:], R[:, c1:])
     tol = 1e-5 * float(torch.mm(A.abs(), B.abs()).max())
@@ -151,6 +234,46 @@ def test_k3_matches_plain_on_card(card, m, ncols, k, c0, c1, mode):
         assert bool((d <= _bf16_ulp(ref[:, c0:c1]) + tol).all())
     else:
         assert float(d.max()) <= tol
+
+
+@pytest.mark.parametrize("mode", ["high", "bf16", "bf16out"])
+@pytest.mark.parametrize("m,ncols,k,c0,c1", [(777, 1100, 333, 64, 1000),
+                                             (130, 600, 70, 8, 300),
+                                             (4100, 520, 1536, 0, 517)])
+def test_k3_ragged_and_strided_on_card(card, m, ncols, k, c0, c1, mode):
+    # ragged m, k and c1 off the [128, 256] tile and the K chunk of 64,
+    # with TMA-aligned span starts (the TMA-store epilogue); R a strided
+    # view into a wider buffer, and A and B column slices of wider ones
+    g = torch.Generator(device=card).manual_seed(m + c1)
+    R = torch.randn(m, ncols + 24, generator=g, device=card)[:, 16:16 + ncols]
+    A = torch.randn(m, k + 5, generator=g, device=card)[:, 5:]
+    B = torch.randn(k, c1 - c0 + 3, generator=g, device=card)[:, :c1 - c0]
+    if mode == "bf16out":
+        R = R.to(torch.bfloat16)
+    _k3_check(R, A, B, c0, c1, mode)
+
+
+def test_k3_split_pass_is_bit_identical(card):
+    # ops/tri._split_hi_lo on the same tensor, bit for bit: normal values,
+    # bf16 rounding ties, subnormals, signed zeros, infinities and NaN, in
+    # a strided view
+    g = torch.Generator(device=card).manual_seed(31)
+    x = torch.randn(300, 211, generator=g, device=card) * 1e3
+    x[0, :8] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                             float("nan"), 1e-40, -3e-39, 1.17e-38])
+    # exact ties between two bf16 values, and just off them
+    ties = torch.tensor([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,
+                         -(1.0 + 2.0 ** -8), 1.0 + 2.0 ** -8 + 2.0 ** -20],
+                        device=card)
+    x[1, :4] = ties
+    x[2] = torch.ldexp(torch.rand(211, generator=g, device=card),
+                       torch.full((211,), -140.0, device=card))
+    view = x[:, 3:200]
+    hi, lo = cuda_gemm.split_hi_lo(view)
+    torch.cuda.synchronize()
+    rh, rl = _split_hi_lo(view)
+    assert torch.equal(hi.view(torch.int16), rh.view(torch.int16))
+    assert torch.equal(lo.view(torch.int16), rl.view(torch.int16))
 
 
 def test_k3_wrapper_checks_its_inputs(card):
