@@ -25,9 +25,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      same CUDA inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's
      first and a mid-run trailing update and at a ragged span, each call
      checked against its route counter (split pass + wgmma);
-  5. K2 vs plain: K2 against its plain version in the three modes at the
-     crout path's panel updates (k = 1536, 15360, 30720), its pivot-row
-     refresh at k = 15360 and a ragged shape, with TFLOP/s;
+  5. K2 vs plain: the product kernel's SASS must hold HGMMA, UTMALDG and
+     SYNCS instructions; then K2 against its plain version in the three
+     modes at the crout path's panel updates (k = 1536, 15360, 30720), its
+     pivot-row refreshes at k = 15360 and k = 30720 (the most heavily
+     split call), the Cholesky path's panel update at k = 15360 (B a
+     transposed view) and a ragged shape, with TFLOP/s; each call checked
+     against its route counter (split pass + wgmma), R never written, a
+     repeated call bit-identical; the split pass's time at the two largest
+     calls beside the whole call's;
   6. K4 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
      SYNCS instructions (cuobjdump); then K4 against its plain version at
      experiments/prof_pallas_gemm.py's shapes on each route, checked by
@@ -41,7 +47,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the bulk-copy route, with GB/s;
   8. small end to end: crout ('gather', 'split', 'swap'), flat and
      recursive LU at N=2048 in 'high' and 'highest', Cholesky flat and
-     recursive, and the two solves;
+     recursive, and the two solves; then, with the caller's TF32 on
+     (through the legacy knobs, then through `fp32_precision`), crout,
+     flat, Cholesky and both solves at 'highest' give the same bits as
+     with the defaults, and the caller's knobs read back as set;
   9. crout main path: lu_factor(A, v=1536, precision='high') at N=32768
      f32 (one warm-up, then timed runs), every kernel's launches per
      factorization, peak device memory, and the blocked residual;
@@ -61,10 +70,10 @@ before the last but one is a JSON object with each kernel's numbers: its
 timed factorizations), and `launches_by_path` gives each path's count;
 K4, which no path runs (no path of the JAX package calls matmul_pallas),
 counts the launches of its own phase. `launches_by_route` splits K1's
-into the cluster, grid and tile routes, K3's into its one route (split pass +
-wgmma), K4's by route and K5's and K6's into TMA bulk copies and word
-copies; K1's per route are checked per path against counts derived from
-the step loops. `bound_ms` is the least time the card could take for the kernel's
+into the cluster, grid and tile routes, K3's and K2's into their one route
+(split pass + wgmma), K4's by route and K5's and K6's into TMA bulk copies
+and word copies; K1's per route are checked per path against counts
+derived from the step loops. `bound_ms` is the least time the card could take for the kernel's
 representative call, from this run's shapes. The line before the last is
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
@@ -93,9 +102,12 @@ K3_FLAT = STEPS - 1
 # split and swap run each panel through factor_panel: the unforced search,
 # then the forced refactor of the pivot rows, as on flat
 K1_COMPACT = K1_FLAT
-# K2 on split and swap: one panel update per step with k > 0 (21) and one
-# pivot-row refresh per step with k > 0 and k + w < n (20)
+# K2 on every crout compaction ('gather', split and swap): one panel
+# update per step with k > 0 (21) and one pivot-row refresh per step with
+# k > 0 and k + w < n (20)
 K2_COMPACT = (STEPS - 1) + (STEPS - 2)
+# K2 on Cholesky: one panel update per step with k > 0
+K2_CHOLESKY = STEPS - 1
 # swap, per step: K6 gathers lu_top = M[piv] and Rpiv = R[piv]; where the
 # kept prefix is not empty (every step but the last), K6 gathers the
 # movers and K5 scatters them
@@ -110,9 +122,10 @@ KERNELS = ("rank1_panel", "schur_update", "sub_matmul_bigk", "matmul",
            "scatter_rows", "gather_rows")
 # launches per factorization of each path; a kernel left out runs 0 times
 PATH_LAUNCHES = {
-    "crout": {"rank1_panel": K1_CROUT},
+    "crout": {"rank1_panel": K1_CROUT, "sub_matmul_bigk": K2_COMPACT},
     "flat": {"rank1_panel": K1_FLAT, "schur_update": K3_FLAT},
-    "cholesky": {"rank1_panel": K1_CHOLESKY},
+    "cholesky": {"rank1_panel": K1_CHOLESKY,
+                 "sub_matmul_bigk": K2_CHOLESKY},
     "swap": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
              "scatter_rows": K5_SWAP, "gather_rows": K6_SWAP},
     "split": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
@@ -180,14 +193,21 @@ K3_SHAPES = (("first", 32768, 32768, 1536, 1536, 32768),
 # 'high'/'bf16': kernel and plain version take the same bf16 operand
 # values and differ only in fp32 summation order
 K3_TOL = 1e-5              # of max(|A| @ |B|)
-# K2 (tag, m, k, n): R [m, n] - A [m, k] @ B [k, n] at the crout path's
-# panel updates of steps k = 1536, 15360 and 30720, its pivot-row refresh
-# at k = 15360, and a ragged shape whose K is split across blocks
-K2_SHAPES = (("panel k=1536", 31232, 1536, 1536),
-             ("panel k=15360", 17408, 15360, 1536),
-             ("panel k=30720", 2048, 30720, 1536),
-             ("refresh k=15360", 1536, 15360, 15872),
-             ("ragged", 1000, 3001, 300))
+# K2 (tag, m, k, n, B transposed): R [m, n] - A [m, k] @ B [k, n] at the
+# crout path's panel updates of steps k = 1536, 15360 and 30720, its
+# pivot-row refreshes at k = 15360 and 30720, the Cholesky path's panel
+# update at k = 15360 (B the view F[k:k+w, :k].T of an [N, N] F), and a
+# ragged shape whose K is split across units
+K2_SHAPES = (("panel k=1536", 31232, 1536, 1536, False),
+             ("panel k=15360", 17408, 15360, 1536, False),
+             ("panel k=30720", 2048, 30720, 1536, False),
+             ("refresh k=15360", 1536, 15360, 15872, False),
+             ("refresh k=30720", 1536, 30720, 512, False),
+             ("Cholesky k=15360", 17408, 15360, 1536, True),
+             ("ragged", 1000, 3001, 300, False))
+# the calls whose split pass is timed beside the whole call ('high'): the
+# largest A and the largest B of the crout path
+K2_SPLIT_TIMED = ("panel k=15360", "refresh k=15360")
 # K4 (m, k, n): experiments/prof_pallas_gemm.py's shapes; the gate is K3's
 K4_SHAPES = ((16384, 512, 16384), (8192, 1024, 8192), (8192, 8192, 8192))
 # K5/K6: swap's push-up of V rows into an [N, N] R, and the gathers of V
@@ -523,11 +543,17 @@ def phase_k2(medium_bf16: bool):
     from conflux_tpu_torch.ops.gemm import MODES, _sub_matmul_bigk_t
     from conflux_tpu_torch.timing import per_call_ms
 
+    # every template instance of the product (three modes) holds wgmma;
+    # K4's mma.sync kernel shares the library, so the check is per function
+    _sass_check([("bigk_gemm", "sub_matmul_bigk_kernel",
+                  ("HGMMA", "UTMALDG", "SYNCS"), True)])
+    counters = ("SUB_MATMUL_BIGK_LAUNCHES", "SUB_MATMUL_BIGK_WGMMA_LAUNCHES")
     rows = []
-    for si, (tag, m, k, n) in enumerate(K2_SHAPES):
+    for si, (tag, m, k, n, bt) in enumerate(K2_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(900 + si)
         A = torch.randn(m, k, generator=g, device="cuda")
-        B = torch.randn(k, n, generator=g, device="cuda")
+        B = (torch.randn(n, N, generator=g, device="cuda")[:, :k].T if bt
+             else torch.randn(k, n, generator=g, device="cuda"))
         R32 = torch.randn(m, n, generator=g, device="cuda")
         scale = float(torch.mm(A.abs(), B.abs()).max())
         splits = cuda_gemm.sub_matmul_bigk_splits(m, n, k)
@@ -535,10 +561,19 @@ def phase_k2(medium_bf16: bool):
             R = R32.to(torch.bfloat16) if mode == "bf16out" else R32
             R0 = R.clone()
             ref = _sub_matmul_bigk_t(R, A, B, mode)
+            before = [getattr(cuda_gemm, c) for c in counters]
             got = cuda_gemm.sub_matmul_bigk(R, A, B, mode)
             torch.cuda.synchronize()
+            moved = tuple(getattr(cuda_gemm, c) - b
+                          for c, b in zip(counters, before))
+            if moved != (1, 1):
+                fail(f"K2 {tag} {mode}: route counters moved {moved}, "
+                     "expected the wgmma route")
             if not torch.equal(R, R0):
                 fail(f"K2 {tag} {mode}: R was written")
+            if not torch.equal(got, cuda_gemm.sub_matmul_bigk(R, A, B,
+                                                              mode)):
+                fail(f"K2 {tag} {mode}: a repeated call gave other bits")
             d = (got.float() - ref.float()).abs()
             diff = float(d.max())
             if mode == "bf16out":
@@ -562,10 +597,20 @@ def phase_k2(medium_bf16: bool):
             tflops = 2.0 * m * n * k / (t_k * 1e-3) / 1e12
             libs = "none" if t_l is None else f"{t_l:.4f} ms"
             print(f"K2 {tag} R [{m}, {n}] k {k} ({splits} K splits) "
-                  f"{mode:7s}: max|diff| {diff:.3e}, {check}, kernel "
-                  f"{t_k:.4f} ms ({tflops:.1f} TFLOP/s of A@B), plain "
-                  f"{t_p:.4f} ms, library {libs}, bound {bound[0]:.4f} ms "
-                  f"({bound[1]})")
+                  f"{mode:7s}: max|diff| {diff:.3e}, {check}, repeat "
+                  f"bit-identical, kernel {t_k:.4f} ms ({tflops:.1f} "
+                  f"TFLOP/s of A@B), plain {t_p:.4f} ms, library {libs}, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]})")
+            if mode == "high" and tag in K2_SPLIT_TIMED:
+                # the same split pass the call runs first, alone, on both
+                # operands (hi and lo)
+                t_s = (per_call_ms(cuda_gemm.split_hi_lo, A)
+                       + per_call_ms(cuda_gemm.split_hi_lo, B))
+                moved_bytes = 8.0 * (m * k + k * n)
+                print(f"K2 {tag} 'high' split pass of A and B: {t_s:.4f} ms "
+                      f"of the call's {t_k:.4f} ms ({t_s / t_k:.1%}), "
+                      f"{moved_bytes / 1e9:.2f} GB at "
+                      f"{moved_bytes / (t_s * 1e-3) / 1e12:.2f} TB/s")
             if not good:
                 fail(f"K2 {tag} {mode}: kernel and plain disagree ({check})")
             rows.append({"shape": tag, "mode": mode, "max_abs_err": diff,
@@ -852,6 +897,80 @@ def phase_small():
                 if not sres <= RESIDUAL_GATE:
                     fail(f"cho_solve residual {sres}")
             print(msg)
+    _tf32_check(A, S, b)
+
+
+def _entry_results(A, S, b) -> dict:
+    """crout, flat and Cholesky at 'highest', both solves and the blocked
+    residuals, by name."""
+    import torch
+
+    from conflux_tpu_torch.cholesky.single import cholesky
+    from conflux_tpu_torch.lu.single import lu_factor
+    from conflux_tpu_torch.solve import cho_solve, lu_solve
+    from conflux_tpu_torch.validation import (
+        cholesky_residual_blocked,
+        lu_residual_blocked,
+    )
+
+    out = {}
+    for scheme in ("crout", "flat"):
+        F, perm = lu_factor(A, v=256, scheme=scheme)
+        out.update({f"{scheme} F": F, f"{scheme} perm": perm,
+                    f"{scheme} residual": torch.tensor(
+                        lu_residual_blocked(A, F, perm)),
+                    f"{scheme} lu_solve": lu_solve(F, perm, b)})
+    L = cholesky(S, v=256)
+    out.update({"Cholesky L": L, "Cholesky residual": torch.tensor(
+        cholesky_residual_blocked(S, L)), "cho_solve": cho_solve(L, b)})
+    torch.cuda.synchronize()
+    return out
+
+
+def _tf32_check(A, S, b):
+    """With the caller's TF32 on, first through the legacy knobs and then
+    through `fp32_precision`, every entry point gives the bits it gives
+    with the defaults, and the caller's knobs read back as set; they are
+    restored before the next phase. An unpinned fp32 torch.mm under the
+    same setting shows that TF32 was really on."""
+    import torch
+
+    knobs = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [k.fp32_precision for k in knobs]
+    ref = _entry_results(A, S, b)
+    mm = torch.mm(A, A)
+    for api in ("legacy", "fp32_precision"):
+        if api == "legacy":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+        else:
+            torch.backends.cuda.matmul.fp32_precision = "tf32"
+        state = [k.fp32_precision for k in knobs]
+        got = _entry_results(A, S, b)
+        back = [k.fp32_precision for k in knobs]
+        legacy_back = (api != "legacy" or (
+            torch.backends.cuda.matmul.allow_tf32 is True
+            and torch.get_float32_matmul_precision() == "high"))
+        tf32_diff = float((torch.mm(A, A) - mm).abs().max())
+        if api == "legacy":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+        for knob, value in zip(knobs, saved):
+            knob.fp32_precision = value
+        differ = [name for name in ref if not torch.equal(ref[name],
+                                                           got[name])]
+        print(f"TF32 on through {api} ({state}): {len(ref) - len(differ)} "
+              f"of {len(ref)} results bit-identical to the defaults' "
+              f"(crout, flat, Cholesky, both solves, residuals at 'highest' "
+              f"N={A.shape[0]}); caller's knobs read back {back}; an "
+              f"unpinned fp32 torch.mm moved by up to {tf32_diff:.3e}")
+        if back != state or not legacy_back:
+            fail(f"TF32 via {api}: the caller's settings came back as {back}")
+        if differ:
+            fail(f"TF32 via {api}: {differ} differ from the defaults' run")
+        if tf32_diff == 0.0:
+            fail(f"TF32 via {api}: an unpinned torch.mm did not change, so "
+                 "the check proves nothing")
 
 
 def _counters():
@@ -869,6 +988,8 @@ def _counters():
             "rank1_panel grid": (cuda_panel, "LAUNCHES_GRID"),
             "rank1_panel tile": (cuda_panel, "LAUNCHES_TILE"),
             "schur_update wgmma": (cuda_gemm, "SCHUR_UPDATE_WGMMA_LAUNCHES"),
+            "sub_matmul_bigk wgmma": (cuda_gemm,
+                                      "SUB_MATMUL_BIGK_WGMMA_LAUNCHES"),
             "matmul wgmma": (cuda_gemm, "MATMUL_WGMMA_LAUNCHES"),
             "matmul mma.sync": (cuda_gemm, "MATMUL_MMA_SYNC_LAUNCHES"),
             "scatter_rows bulk": (cuda_scatter,
@@ -907,10 +1028,11 @@ def _timed_path(fn, *args):
 def _path_want(path: str) -> dict:
     """Launches per factorization of `path`: each kernel's, K1's per route
     (ROUTE_LAUNCHES, derived from the step loop once the card's cluster
-    route is known) and K3's on its wgmma route."""
+    route is known) and K3's and K2's on their wgmma route."""
     want = {k: PATH_LAUNCHES[path].get(k, 0) for k in KERNELS}
     want.update(ROUTE_LAUNCHES[path])
     want["schur_update wgmma"] = want["schur_update"]
+    want["sub_matmul_bigk wgmma"] = want["sub_matmul_bigk"]
     return want
 
 
@@ -1063,10 +1185,9 @@ def main() -> int:
             entry["launches_by_route"] = {
                 r: sum(c[f"rank1_panel {r}"] for c in by_path.values())
                 for r in K1_ROUTES}
-        if name == "schur_update":
+        if name in ("schur_update", "sub_matmul_bigk"):
             entry["launches_by_route"] = {
-                "wgmma": sum(c["schur_update wgmma"]
-                             for c in by_path.values())}
+                "wgmma": sum(c[name + " wgmma"] for c in by_path.values())}
         if name in ("scatter_rows", "gather_rows"):
             bulk = sum(c[name + " bulk"] for c in by_path.values())
             entry["launches_by_route"] = {"bulk": bulk,

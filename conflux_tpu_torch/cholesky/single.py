@@ -2,9 +2,11 @@
 
 PyTorch counterpart of `conflux_tpu/cholesky/single.py`. The flat scheme
 is left-looking and updates one copy of A in place: each column panel is
-updated by one [m_k, k] x [k, w] product against all previous panels,
-then factored (a w x w `potrf_tile`, K1 in forced mode on the card, and a
-blocked TRSM). The recursive scheme splits in halves.
+updated by one [m_k, k] x [k, w] product against all previous panels
+(in 'high' `ops/gemm.sub_matmul_bigk`, K2 on the card, its B the
+transposed view F[k:k+w, :k].T read in place), then factored (a w x w
+`potrf_tile`, K1 in forced mode on the card, and a blocked TRSM). The
+recursive scheme splits in halves.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
+from conflux_tpu_torch.ops.gemm import sub_matmul_bigk
 from conflux_tpu_torch.ops.tri import potrf_tile, schur_dot, trsm_right_lower_t
+from conflux_tpu_torch.precision import ieee_fp32
 
 
 def _potrf_flat(A: torch.Tensor, v: int,
@@ -25,7 +29,12 @@ def _potrf_flat(A: torch.Tensor, v: int,
         w = min(v, n - k)
         col = F[k:, k:k + w]
         if k > 0:
-            col = col - schur_dot(F[k:, :k], F[k:k + w, :k].T, precision)
+            L21, L1t = F[k:, :k], F[k:k + w, :k].T
+            # K2 in 'high' only: in 'bf16' it ties with the library's one
+            # pass at these shapes (experiments/torch_kernel_ab.py --steps)
+            col = (sub_matmul_bigk(col, L21, L1t, precision)
+                   if precision == "high"
+                   else col - schur_dot(L21, L1t, precision))
         L11 = potrf_tile(col[:w])
         F[k:k + w, k:k + w] = L11
         if k + w < n:
@@ -50,6 +59,7 @@ def _potrf_rec(A: torch.Tensor, v: int,
     return torch.cat([top, bot], dim=0)
 
 
+@ieee_fp32()
 def cholesky(A: torch.Tensor, v: int = 128, precision: str = "highest",
              scheme: str = "flat") -> torch.Tensor:
     """Lower Cholesky factor of an SPD matrix. scheme: 'flat'
@@ -72,6 +82,7 @@ def cholesky(A: torch.Tensor, v: int = 128, precision: str = "highest",
     raise ConfluxError(ErrorCode.INVALID_SHAPE, f"unknown scheme {scheme!r}")
 
 
+@ieee_fp32()
 def cholesky_residual(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
     """||A - L L^T||_F / (N ||A||_F) in IEEE fp32 on the factor's device
     (a 0-d tensor)."""

@@ -5,30 +5,46 @@
 // Replaces the TPU kernel conflux_tpu/ops/pallas_gemm.py:
 // sub_matmul_pallas_bigk (kernels _acc_bigk_kernel and _acc_bigk_kernel_x3).
 // Same arithmetic as K3 (schur_update.cu): R [m, nt] f32 (bf16 in mode
-// 'bf16out'), A [m, k] and B [k, nt] f32, each operand element split into
-// bf16 hi/lo in registers, 'high' = hi*hi + hi*lo + lo*hi, the one-pass
-// modes hi*hi, fp32 sums; then out = round(float(R) - acc) into R's type,
-// once, into a fresh tensor (R is read, never written).
+// 'bf16out'), A [m, k] and B [k, nt] f32 (B may be stored transposed, as
+// the Cholesky panel update's F[k:k+w, :k].T: the split pass reads it in
+// place through shared-memory tiles), each operand element split into
+// bf16 hi = bf16_rn(x) and lo = bf16_rn(x - hi), 'high' = hi*hi + hi*lo +
+// lo*hi, the one-pass modes hi*hi, fp32 sums; then out = round(float(R) -
+// acc) into R's type, once, into a fresh tensor (R is read, never written).
 //
 // What bounds it on the H100: the tensor cores. At the crout path's shapes
 // (k from 1536 to 30720, w = 1536) it does 2k (x3 in 'high') bf16 FLOPs per
-// output element against 8 bytes of R and out traffic. The TPU kernel runs
-// K as a sequential grid axis with a VMEM accumulator; on Hopper blocks run
-// in no order, so K is the loop inside the block: the mainloop of
-// mma_tile.cuh (the cp.async ring of f32 chunks, the split at fragment
-// load, mma.sync), over a [256, 128] output tile per CTA, one CTA per SM
-// (173 KB of shared memory). That leaves the late crout steps short of
-// tiles: at k = 30720 the panel update's output is [2048, 1536], 96 tiles
-// on 132 SMs, each a 30720-long K loop, and the pivot-row refresh
-// [1536, 512] is 24 tiles. So when a call has fewer tiles than
-// kWaves x SMs, K splits across blocks (split-K): each split accumulates
-// its own K range (whole chunks, at least kMinSplitChunks of them) into an
-// fp32 workspace [splits, m, nt] that the caller allocates, and a second
-// kernel sums the slices in split order (fixed, so the result does not
-// change from run to run), subtracts once from R and rounds once. At
-// k = 30720 that is 6 splits of the panel update (576 CTAs) and 22 of the
-// refresh (528 CTAs). The first crout steps have enough tiles (1464 at
-// k = 1536) and run without a workspace.
+// output element against 8 bytes of R and out traffic, and only wgmma
+// reaches the tensor cores' rate. The design is K3's (wgmma_split.cuh):
+//   * a split pass writes bf16 hi (and, in 'high', lo) copies of A and B
+//     into the workspace the caller allocates, with row strides padded to
+//     16 bytes, so every call takes the one TMA-fed route. Each f32
+//     operand element is read once and split once, where a CTA that split
+//     in registers re-split A for every column tile. The pass is the cost
+//     of that: at the path's largest calls it moves ~2.1 GB (A [17408,
+//     15360] at the panel update of step k = 15360, 'high': ~0.64 ms at
+//     the card's memory rate) and ~2 GB (B [15360, 15872] at the refresh
+//     of that step, ~0.58 ms), against a product bound of ~2.5 ms; in the
+//     one-pass modes it is the same cast the plain version does;
+//   * the product is the warp-specialised, persistent TMA + wgmma mainloop
+//     ([128, 256] tiles, 4 x 48 KB stages, 2 x 96 KB in 'high' with one
+//     accumulator for its three products), over work units (tile, split);
+//   * the late crout steps are short of tiles (the panel update at k =
+//     30720 is [2048, 1536], 96 tiles on 132 SMs, each a 30720-long K; its
+//     pivot-row refresh [1536, 512] is 24), so below kWaves waves of tiles
+//     K splits across units (split-K: whole chunks of 64, at least
+//     kMinSplitChunks per split, none empty; 6 splits of that panel update,
+//     22 of that refresh). One persistent grid walks all units, split-major;
+//   * an unsplit unit runs K3's epilogue: R's elements read once into
+//     registers (the first quarter during the mainloop), out = R - acc
+//     rounded once, written by TMA stores through swizzled staging, or from
+//     the registers where out's width breaks TMA's 16-byte rules (a TMA
+//     box clipped at an unaligned last column writes into the columns
+//     past it). A split unit writes its fp32 partial product into its own
+//     plane of the workspace (tile-padded, so TMA stores never cross
+//     planes), and a second kernel sums the planes in split order (fixed,
+//     so the result does not change from run to run), subtracts once from
+//     R and rounds once.
 //
 // K4: C = A @ B with an fp32 result, the plain GEMM skeleton. Replaces
 // conflux_tpu/ops/pallas_gemm.py:matmul_pallas (kernel _mm_kernel). A and B
@@ -53,136 +69,246 @@
 // All take any shape and any row stride; the ragged edges read as zero
 // (TMA fills them) and the stores are masked.
 
-#include "mma_tile.cuh"
-#include "wgmma_tile.cuh"
+#include <algorithm>
+
+#include "wgmma_split.cuh"
 
 namespace {
 
-using namespace conflux_mma;
+using namespace conflux_split;
 
-constexpr int kWaves = 4;            // split K below this many waves of CTAs
+// ---------------------------------------------------------------- K2
+
+constexpr int kWaves = 4;            // split K below this many waves of tiles
 constexpr int kMinSplitChunks = 16;  // K chunks per split, at least
 
 struct Plan {
-  int tiles_m, tiles_n, splits, k_per_split;
+  int tiles_m, tiles_n, chunks, splits, per;    // per: K chunks a split
 };
 
 Plan plan(int m, int nt, int k) {
   Plan p;
   p.tiles_m = (m + kBM - 1) / kBM;
   p.tiles_n = (nt + kBN - 1) / kBN;
+  p.chunks = (k + kBK - 1) / kBK;
   const long long tiles = (long long)p.tiles_m * p.tiles_n;
-  const int chunks = (k + kBK - 1) / kBK;
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long target = (long long)kWaves * sms;
+  const long long target = (long long)kWaves * sm_count();
   long long splits = 1;
   if (tiles < target) {
     splits = (target + tiles - 1) / tiles;
-    splits = splits < chunks / kMinSplitChunks ? splits
-                                               : chunks / kMinSplitChunks;
+    splits = std::min<long long>(splits, p.chunks / kMinSplitChunks);
     if (splits < 1) splits = 1;
   }
-  const int per = (chunks + (int)splits - 1) / (int)splits;
-  p.k_per_split = per * kBK;
-  p.splits = (chunks + per - 1) / per;     // no split is left empty
+  p.per = (p.chunks + (int)splits - 1) / (int)splits;
+  p.splits = (p.chunks + p.per - 1) / p.per;     // no split is left empty
   return p;
 }
 
-long long workspace_floats(const Plan& p, int m, int nt) {
-  return p.splits > 1 ? (long long)p.splits * m * nt : 0;
+// split-K's planes, after the split copies in the workspace: splits x
+// [tiles_m * kBM, plane_ld(nt)] fp32 partial products, each plane padded
+// to whole tiles and its rows to 16 bytes
+int plane_ld(int nt) { return (nt + 3) / 4 * 4; }
+size_t plane_rows(const Plan& p) { return (size_t)p.tiles_m * kBM; }
+
+size_t workspace_bytes(const Plan& p, int m, int nt, int k, int passes) {
+  const size_t planes =
+      p.splits > 1 ? (size_t)p.splits * plane_rows(p) * plane_ld(nt) * 4 : 0;
+  return layout(m, nt, k, passes).total() + planes;
 }
 
-struct BigkArgs {
-  const void* r;    // R [m, nt], row stride ldr
-  void* out;        // out [m, nt], row stride ldo
-  float* ws;        // [splits, m, nt] partial products when splits > 1
-  int ldr, ldo;
-  Operands op;
-  int tiles_m, tiles_n, k_per_split;
-};
+enum BigkRoute { kBigkRouteWgmma = 1 };
 
-template <bool kX3, bool kVec, typename T>
-__global__ void __launch_bounds__(kThreads) sub_matmul_bigk_kernel(
-    BigkArgs a) {
-  extern __shared__ __align__(128) float smem[];
-  int row0, col0;
-  tile_origin(blockIdx.x, a.tiles_m, a.tiles_n, row0, col0);
-  const int kb = blockIdx.y * a.k_per_split;
-  Operands op = a.op;
-  op.k = min(op.k, kb + a.k_per_split);
-  Acc acc;
-  mainloop<kX3, kVec>(op, smem, row0, col0, kb, acc);
+// kSplit: every unit writes its partial product into its plane (r and out
+// unused); otherwise out = R - A @ B (planes unused)
+template <bool kX3, bool kSplit, typename T>
+__global__ void __launch_bounds__(kThreads, 1) sub_matmul_bigk_kernel(
+    const __grid_constant__ Maps maps,
+    const __grid_constant__ CUtensorMap map_o, bool tma_o, const T* r,
+    int ldr, T* out, int ldo, float* planes, int ldw, int m, int nt,
+    Plan p) {
+  using Rg = Ring<kX3>;
+  extern __shared__ uint8_t k2_smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(k2_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* cstage = ring + Rg::kBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(cstage + kConsumers * kCStageBytes);
+  uint64_t* empty = full + Rg::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Rg::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // work unit u: tile u % tiles, K chunks [kc0, kc0 + nk) of split u / tiles
+  const int tiles = p.tiles_m * p.tiles_n;
+  const int units = tiles * p.splits;
+  const int wg = threadIdx.x / 128;
 
-  float* cs = smem;
-  stage_acc(acc, cs);
-  const bool split = gridDim.y > 1;
-  const T* r = static_cast<const T*>(a.r);
-  T* out = static_cast<T*>(a.out);
-  for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
-    const int i = idx / kBN, j = idx % kBN;
-    const int gr = row0 + i, gc = col0 + j;
-    if (gr < op.m && gc < op.nt) {
-      const float c = cs[i * kLdC + j];
-      if (split)
-        a.ws[((size_t)blockIdx.y * op.m + gr) * op.nt + gc] = c;
-      else
-        store_r(out + (size_t)gr * a.ldo + gc,
-                __fsub_rn(load_r(r + (size_t)gr * a.ldr + gc), c));
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      Pos pos;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        int row0, col0;
+        tile_origin(u % tiles, p.tiles_m, p.tiles_n, row0, col0);
+        const int kc0 = (u / tiles) * p.per;
+        produce<kX3>(maps, ring, full, empty, pos, row0, col0, kc0,
+                     min(p.per, p.chunks - kc0));
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int cw = wg - 1;                       // this consumer's 64 rows
+  const int tid = threadIdx.x % 128;
+  const bool vec2r = ldr % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(r) % (2 * sizeof(T)) == 0;
+  const bool vec2o = ldo % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
+  uint8_t* cs = cstage + cw * kCStageBytes;
+  float acc[128];
+  Pos pos;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int row0, col0;
+    tile_origin(u % tiles, p.tiles_m, p.tiles_n, row0, col0);
+    const int split = u / tiles;
+    const int nk = min(p.per, p.chunks - split * p.per);
+    float cur[32];
+    if constexpr (kSplit) {
+      consume<kX3>(acc, ring, full, empty, pos, cw, tid, nk);
+      // this split's partial product, into its plane
+      const int prow = split * p.tiles_m * kBM;
+      store_block<false>(acc, cur, r, 0, false, planes + (size_t)prow * ldw,
+                         ldw, true, &map_o, tma_o, prow, m, nt, row0, col0,
+                         cw, cs);
+    } else {
+      int gr0, gc0;
+      block_origin(row0, col0, cw, gr0, gc0);
+      // R's first quarter is in flight during the mainloop
+      load_quarter(r, ldr, m, nt, gr0, gc0, 0, vec2r, cur);
+      consume<kX3>(acc, ring, full, empty, pos, cw, tid, nk);
+      store_block<true>(acc, cur, r, ldr, vec2r, out, ldo, vec2o, &map_o,
+                        tma_o, 0, m, nt, row0, col0, cw, cs);
     }
   }
+  if (tid == 0) bulk_wait_all();     // the TMA stores are done
 }
 
-// out = R - (ws[0] + ws[1] + ... + ws[splits-1]), summed in split order
+// out = R - (ws[0] + ws[1] + ... + ws[splits-1]), summed in split order;
+// plane p's row i at ws + p * plane + i * ldw
 template <typename T>
 __global__ void __launch_bounds__(256) bigk_reduce_kernel(
-    const T* r, int ldr, T* out, int ldo, const float* ws, int m, int nt,
-    int splits) {
-  const size_t plane = (size_t)m * nt;
-  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-       idx < plane; idx += (size_t)gridDim.x * blockDim.x) {
+    const T* r, int ldr, T* out, int ldo, const float* ws, int ldw,
+    size_t plane, int m, int nt, int splits) {
+  const size_t n = (size_t)m * nt;
+  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * blockDim.x) {
     const int i = static_cast<int>(idx / nt), j = static_cast<int>(idx % nt);
-    float s = ws[idx];
-    for (int p = 1; p < splits; ++p) s = __fadd_rn(s, ws[p * plane + idx]);
-    store_r(out + (size_t)i * ldo + j,
-            __fsub_rn(load_r(r + (size_t)i * ldr + j), s));
+    const float* w = ws + (size_t)i * ldw + j;
+    float s = w[0];
+    for (int q = 1; q < splits; ++q) s = __fadd_rn(s, w[q * plane]);
+    st1(out + (size_t)i * ldo + j,
+        __fsub_rn(ld1(r + (size_t)i * ldr + j), s));
   }
 }
 
-template <bool kX3, bool kVec, typename T>
-cudaError_t launch_bigk(const BigkArgs& args, const Plan& p,
-                        cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      sub_matmul_bigk_kernel<kX3, kVec, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+// one launch of the product kernel over all units of plan p
+template <bool kX3, bool kSplit, typename T>
+cudaError_t start_bigk(const Maps& maps, const CUtensorMap& map_o,
+                       bool tma_o, const T* r, int ldr, T* out, int ldo,
+                       float* planes, int m, int nt, const Plan& p,
+                       cudaStream_t stream) {
+  auto kernel = sub_matmul_bigk_kernel<kX3, kSplit, T>;
+  const size_t smem = smem_bytes<kX3>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const long long tiles = (long long)p.tiles_m * p.tiles_n;
-  if (tiles > 0x7fffffffLL || p.splits > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(tiles), p.splits);
-  sub_matmul_bigk_kernel<kX3, kVec, T>
-      <<<grid, kThreads, kSmemBytes, stream>>>(args);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || p.splits == 1) return e;
-  const long long plane = (long long)args.op.m * args.op.nt;
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (plane + 255) / 256;
-  if (blocks > 8LL * sms) blocks = 8LL * sms;
-  bigk_reduce_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      static_cast<const T*>(args.r), args.ldr, static_cast<T*>(args.out),
-      args.ldo, args.ws, args.op.m, args.op.nt, p.splits);
+  const long long units = (long long)p.tiles_m * p.tiles_n * p.splits;
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  kernel<<<grid, kThreads, smem, stream>>>(maps, map_o, tma_o, r, ldr, out,
+                                           ldo, planes, plane_ld(nt), m, nt,
+                                           p);
   return cudaGetLastError();
 }
 
 template <bool kX3, typename T>
-cudaError_t launch_bigk_aligned(const BigkArgs& args, const Plan& p,
-                                cudaStream_t stream) {
-  return operands_16b_aligned(args.op)
-             ? launch_bigk<kX3, true, T>(args, p, stream)
-             : launch_bigk<kX3, false, T>(args, p, stream);
+cudaError_t launch_bigk(const Maps& maps, const T* r, int ldr, T* out,
+                        int ldo, float* planes, int m, int nt, const Plan& p,
+                        cudaStream_t stream) {
+  const int ldw = plane_ld(nt);
+  CUtensorMap map_o{};
+  if (p.splits > 1) {
+    // the planes, one map over all of them: [splits * plane_rows, ldw];
+    // the split units write fp32 partials whatever R's type
+    cudaError_t e =
+        make_map(&map_o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, planes,
+                 (uint64_t)p.splits * plane_rows(p), ldw, ldw, 64, 32);
+    if (e == cudaSuccess)
+      e = start_bigk<kX3, true, float>(maps, map_o, true, nullptr, 0,
+                                       nullptr, 0, planes, m, nt, p, stream);
+    if (e != cudaSuccess) return e;
+    const long long n = (long long)m * nt;
+    const long long blocks =
+        std::min<long long>((n + 255) / 256, 8LL * sm_count());
+    bigk_reduce_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+        r, ldr, out, ldo, planes, ldw, plane_rows(p) * ldw, m, nt, p.splits);
+    return cudaGetLastError();
+  }
+  // TMA stores clip a box at out's last column only to 16 bytes, so out's
+  // width must be a multiple of 16 bytes too
+  const bool tma_o = reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                     ((size_t)ldo * sizeof(T)) % 16 == 0 &&
+                     ((size_t)nt * sizeof(T)) % 16 == 0 && ldo >= nt;
+  if (tma_o) {
+    const cudaError_t e = make_map(
+        &map_o,
+        sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        sizeof(T), out, m, nt, ldo, 64, 128 / sizeof(T));
+    if (e != cudaSuccess) return e;
+  }
+  return start_bigk<kX3, false, T>(maps, map_o, tma_o, r, ldr, out, ldo,
+                                   nullptr, m, nt, p, stream);
+}
+
+// ------------------------------------------------- cp.async and mma.sync
+
+// global -> shared copies of `bytes` (<= the copy size; the rest of the
+// destination is zero-filled and nothing past `bytes` is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---------------------------------------------------------------- K4 f32
@@ -674,13 +800,6 @@ bool tma_ok(const void* p, int ld, int cols) {
          ld >= cols;
 }
 
-int sm_count() {
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 cudaError_t launch_wgmma(const void* a, int lda, const void* b, int ldb,
                          float* c, int ldc, int m, int n, int k,
                          cudaStream_t stream) {
@@ -721,9 +840,10 @@ const char* conflux_bigk_gemm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dynamic shared memory a K2 CTA uses (ptxas reports static memory only)
+// dynamic shared memory a K2 CTA uses in 'high' (ptxas reports static
+// memory only)
 int conflux_sub_matmul_bigk_smem_bytes() {
-  return static_cast<int>(kSmemBytes);
+  return static_cast<int>(smem_bytes<true>());
 }
 
 // K2's K splits for an [m, nt] output and depth k on the current device
@@ -731,33 +851,54 @@ int conflux_sub_matmul_bigk_splits(int m, int nt, int k) {
   return plan(m, nt, k).splits;
 }
 
-// floats of fp32 workspace K2 needs for that call (0 without split-K)
-long long conflux_sub_matmul_bigk_workspace_floats(int m, int nt, int k) {
-  return workspace_floats(plan(m, nt, k), m, nt);
+// bytes of workspace K2 needs for that call: the split copies, and the
+// split-K planes where K splits
+long long conflux_sub_matmul_bigk_workspace_bytes(int m, int nt, int k,
+                                                  int passes) {
+  return static_cast<long long>(
+      workspace_bytes(plan(m, nt, k), m, nt, k, passes));
 }
 
 // out = R - A @ B on `stream`. r_bf16: R and out are bfloat16 (mode
-// 'bf16out'), else float32. passes: 3 for 'high', 1 for 'bf16'/'bf16out'.
-// ws holds ws_floats floats, at least conflux_sub_matmul_bigk_workspace_
-// floats(m, nt, k). Returns 0 or a cudaError_t code (a refused launch
-// included); never synchronises.
+// 'bf16out'), else float32. b_trans: B is stored transposed, B[i, j] at
+// b[j * ldb + i]. passes: 3 for 'high', 1 for 'bf16'/'bf16out'.
+// ws holds ws_bytes bytes, at least conflux_sub_matmul_bigk_workspace_
+// bytes(m, nt, k, passes), 256-byte aligned. *route receives the kernel
+// launched (1: split pass + wgmma, with the split-K sum where K splits).
+// Returns 0 or a cudaError_t code (a refused launch of any of the three
+// kernels included); never synchronises.
 int conflux_sub_matmul_bigk(const void* r, int ldr, void* out, int ldo,
                             int r_bf16, const float* a, int lda,
-                            const float* b, int ldb, int m, int nt, int k,
-                            int passes, float* ws, long long ws_floats,
-                            void* stream) {
-  if (m < 1 || nt < 1 || k < 1 || (passes != 1 && passes != 3))
+                            const float* b, int ldb, int b_trans, int m,
+                            int nt, int k, int passes, void* ws,
+                            long long ws_bytes, void* stream, int* route) {
+  if (m < 1 || nt < 1 || k < 1 || (passes != 1 && passes != 3) ||
+      (passes == 3 && r_bf16))      // 'high' takes a float32 R
     return cudaErrorInvalidValue;
   const Plan p = plan(m, nt, k);
-  if (ws_floats < workspace_floats(p, m, nt)) return cudaErrorInvalidValue;
-  BigkArgs args{r, out, ws, ldr, ldo, Operands{a, b, lda, ldb, m, nt, k},
-                p.tiles_m, p.tiles_n, p.k_per_split};
+  if (ws_bytes < static_cast<long long>(workspace_bytes(p, m, nt, k,
+                                                        passes)) ||
+      reinterpret_cast<uintptr_t>(ws) % 256 != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Maps maps;
+  const cudaError_t e = split_operands(&maps, ws, a, lda, b, ldb,
+                                       b_trans != 0, m, nt, k, passes, s);
+  if (e != cudaSuccess) return e;
+  float* planes = reinterpret_cast<float*>(
+      static_cast<uint8_t*>(ws) + layout(m, nt, k, passes).total());
+  *route = kBigkRouteWgmma;
   if (passes == 3)
-    return r_bf16 ? launch_bigk_aligned<true, __nv_bfloat16>(args, p, s)
-                  : launch_bigk_aligned<true, float>(args, p, s);
-  return r_bf16 ? launch_bigk_aligned<false, __nv_bfloat16>(args, p, s)
-                : launch_bigk_aligned<false, float>(args, p, s);
+    return launch_bigk<true>(maps, static_cast<const float*>(r), ldr,
+                             static_cast<float*>(out), ldo, planes, m, nt, p,
+                             s);
+  return r_bf16 ? launch_bigk<false>(
+                      maps, static_cast<const __nv_bfloat16*>(r), ldr,
+                      static_cast<__nv_bfloat16*>(out), ldo, planes, m, nt,
+                      p, s)
+                : launch_bigk<false>(maps, static_cast<const float*>(r), ldr,
+                                     static_cast<float*>(out), ldo, planes,
+                                     m, nt, p, s);
 }
 
 // C = A @ B on `stream`, C [m, n] float32 with row stride ldc; A [m, k]

@@ -17,10 +17,12 @@ crout keeps its live rows contiguous by one of three compactions:
 'gather' (the default: re-gather the live rows into a fresh buffer),
 'split' (the raw matrix never moves; only the multipliers compact) and
 'swap' (the live rows stay a prefix of one full-size buffer, refilled by a
-w-row push-up each step). On the card 'split' and 'swap' run their big-K
-products through K2 (ops/gemm.sub_matmul_bigk), their row gathers through
-K6 and swap's push-up through K5 (ops/scatter); 'gather' keeps the library
-product and torch indexing, the JAX package's routing.
+w-row push-up each step). On the card every compaction runs its big-K
+products in 'high' and 'bf16' through K2 (ops/gemm.sub_dot), which beats
+the library's bf16 passes there ('gather' keeps `schur_dot` in 'bf16out',
+whose product the JAX package rounds to bf16); 'split' and 'swap' also
+run their row gathers through K6 and swap's push-up through K5
+(ops/scatter), where 'gather' keeps torch indexing.
 
 Pivoting lives in the v-wide panel only (masked argmax) and creates no
 data-dependent shape, so the step loops never wait for the device.
@@ -31,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
-from conflux_tpu_torch.ops.gemm import schur_update, sub_matmul_bigk
+from conflux_tpu_torch.ops.gemm import schur_update, sub_dot
 from conflux_tpu_torch.ops.panel import (
     factor_panel,
     factor_panel_raw,
@@ -45,6 +47,7 @@ from conflux_tpu_torch.ops.tri import (
     unit_lower,
     upper,
 )
+from conflux_tpu_torch.precision import ieee_fp32
 
 
 def _partition_now(dead: int, v: int, k: int, w: int, n: int,
@@ -149,7 +152,7 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
     Per step k (width w):
 
       * panel update: P = R[:, k:k+w] - R[:, :k] @ F[:k, k:k+w], one
-        [m_r, k] x [k, w] product in `precision`;
+        [m_r, k] x [k, w] product in `precision` (`ops/gemm.sub_dot`);
       * masked-argmax panel factorization over the live rows, finishing
         the pivot lanes (merged=False), so the pivot rows' panel columns
         come back as their merged L\\U factor;
@@ -173,7 +176,7 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
         m_r = R.shape[0]
         panel = R[:, k:k + w]
         if k > 0:
-            panel = panel - schur_dot(R[:, :k], F[:k, k:k + w], precision)
+            panel = sub_dot(panel, R[:, :k], F[:k, k:k + w], precision)
         piv, _, M, _ = factor_panel_raw(panel, avail, w, block=128,
                                         merged=False)
         # panel columns: multipliers on live rows, the merged factor on
@@ -190,7 +193,7 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
         if k + w < n:
             rhs = Rpiv[:, k + w:]
             if k > 0:
-                rhs = rhs - schur_dot(Rpiv[:, :k], F[:k, k + w:], precision)
+                rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], precision)
             F[k:k + w, k + w:] = trsm_left_lower_unit(
                 unit_lower(lu_top), rhs, method="invert")
         perm[k:k + w] = origin[piv]
@@ -218,17 +221,6 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
     return F, perm
 
 
-def _sub_dot(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-             precision: str) -> torch.Tensor:
-    """R - A @ B as a new tensor: IEEE fp32 `torch.mm` at 'highest', else
-    K2 in the precision's mode (R is float32 here, so 'bf16out' is the
-    kernel's 'bf16' pass, as on the flat path)."""
-    if precision == "highest":
-        return R - torch.mm(A, B)
-    return sub_matmul_bigk(R, A, B,
-                           "bf16" if precision == "bf16out" else precision)
-
-
 def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
     """Crout LU with 'split' compaction. A crout R's trailing columns are
     never written (they hold raw values until their panel or pivot step),
@@ -247,6 +239,9 @@ def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
     does not apply (Lbuf compacts every step)."""
     m, n = A.shape
     dev = A.device
+    # R is float32 here, so 'bf16out' is K2's 'bf16' pass, as on the flat
+    # path
+    mode = "bf16" if precision == "bf16out" else precision
     T = A
     origin = torch.arange(m, device=dev)
     everyone = torch.ones(m, dtype=torch.bool, device=dev)
@@ -258,7 +253,7 @@ def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
         m_live = m - k
         panel = gather_rows(T[:, k:k + w], origin)             # [m_live, w]
         if k > 0:
-            panel = _sub_dot(panel, Lbuf, F[:k, k:k + w], precision)
+            panel = sub_dot(panel, Lbuf, F[:k, k:k + w], mode)
         piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
         lu_top = gather_rows(M, piv)                           # [w, w]
         F[k:k + w, k:k + w] = lu_top
@@ -268,7 +263,7 @@ def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
         if k + w < n:
             rhs = gather_rows(T[:, k + w:], origin[piv])       # [w, n-k-w]
             if k > 0:
-                rhs = _sub_dot(rhs, Lpiv, F[:k, k + w:], precision)
+                rhs = sub_dot(rhs, Lpiv, F[:k, k + w:], mode)
             F[k:k + w, k + w:] = trsm_left_lower_unit(
                 unit_lower(lu_top), rhs, method="invert")
         perm[k:k + w] = origin[piv]
@@ -333,6 +328,7 @@ def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
     place, and R starts as one copy of A."""
     m, n = A.shape
     dev = A.device
+    mode = "bf16" if precision == "bf16out" else precision   # as 'split'
     R = A.clone()
     origin = torch.arange(m, device=dev)
     everyone = torch.ones(m, dtype=torch.bool, device=dev)
@@ -343,8 +339,7 @@ def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
         m_live = m - k
         panel = R[:m_live, k:k + w]
         if k > 0:
-            panel = _sub_dot(panel, R[:m_live, :k], F[:k, k:k + w],
-                             precision)
+            panel = sub_dot(panel, R[:m_live, :k], F[:k, k:k + w], mode)
         piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
         lu_top = gather_rows(M, piv)                           # [w, w]
         R[:m_live, k:k + w] = M
@@ -356,7 +351,7 @@ def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
         if k + w < n:
             rhs = Rpiv[:, k + w:]
             if k > 0:
-                rhs = _sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], precision)
+                rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], mode)
             F[k:k + w, k + w:] = trsm_left_lower_unit(
                 unit_lower(lu_top), rhs, method="invert")
         perm[k:k + w] = origin[piv]
@@ -417,6 +412,7 @@ def _getrf_rec(A: torch.Tensor, v: int, precision: str = "highest"):
     return torch.cat([top, bot], dim=0), perm
 
 
+@ieee_fp32()
 def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
               scheme: str = "auto", partition: int = 1,
               compaction: str = "gather"):
@@ -424,7 +420,8 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
     A[perm] = unit_lower(F) @ upper(F); `perm` (int64) maps factor row to
     original row. precision: 'highest' (IEEE fp32), 'high' (bf16x3) or
     'bf16' (bf16 products with fp32 accumulation) for the big products of
-    each step; panels and TRSMs stay fp32.
+    each step; panels and TRSMs stay IEEE fp32 whatever TF32 setting the
+    caller chose (`precision.ieee_fp32`).
     scheme: 'crout', 'flat' or 'recursive'. 'auto' runs crout: the JAX
     package's auto_scheme threshold (recursive below N=16384) was measured
     on a TPU, and the port keeps crout until the card's own numbers say
@@ -465,6 +462,7 @@ def _split_factors(F: torch.Tensor):
     return L, U
 
 
+@ieee_fp32()
 def lu(A: torch.Tensor, v: int = 128):
     """Convenience wrapper returning (L, U, perm)."""
     F, perm = lu_factor(A, v)
@@ -472,6 +470,7 @@ def lu(A: torch.Tensor, v: int = 128):
     return L, U, perm
 
 
+@ieee_fp32()
 def lu_residual(A: torch.Tensor, F: torch.Tensor,
                 perm: torch.Tensor) -> torch.Tensor:
     """The reference's correctness gate ||PA - LU||_F / (N ||A||_F), in

@@ -3,11 +3,11 @@
 Each library is one `csrc/<name>.cu` with a plain C interface, compiled by
 `nvcc` for Hopper (`sm_90a`) into `_build/lib<name>-<hash>.so` inside the
 package and loaded with `ctypes`. The hash covers that source, the
-`csrc/` headers it includes (`#include "x.cuh"`) and the compiler flags,
-so an edited source or header builds anew, an unchanged one loads the
-library already built, and editing one kernel leaves the others'
-libraries valid. Nothing here runs when the module is imported: the
-CPU-only test environment has no `nvcc`.
+`csrc/` headers it includes (`#include "x.cuh"`, and the headers those
+include) and the compiler flags, so an edited source or header builds
+anew, an unchanged one loads the library already built, and editing one
+kernel leaves the others' libraries valid. Nothing here runs when the
+module is imported: the CPU-only test environment has no `nvcc`.
 """
 
 from __future__ import annotations
@@ -44,13 +44,25 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
+def _headers(src: bytes) -> list:
+    """The `csrc/` headers `src` includes by name, directly or through
+    another such header, in sorted order."""
+    seen, todo = set(), list(_INCLUDE.findall(src))
+    while todo:
+        header = todo.pop()
+        if header not in seen:
+            seen.add(header)
+            todo += _INCLUDE.findall((_CSRC / header.decode()).read_bytes())
+    return sorted(seen)
+
+
 def _digest(name: str) -> str:
     """Hash of the flags, `csrc/<name>.cu` and the `csrc/` headers it
-    includes by name, and of nothing else."""
+    includes, and of nothing else."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     src = (_CSRC / f"{name}.cu").read_bytes()
     h.update(src)
-    for header in sorted(set(_INCLUDE.findall(src))):
+    for header in _headers(src):
         h.update(header)
         h.update((_CSRC / header.decode()).read_bytes())
     return h.hexdigest()[:16]

@@ -5,7 +5,9 @@ Counterpart of `conflux_tpu/ops/pallas_gemm.py`:
     `_acc_kernel_x3`, split `_split_hi_lo`): csrc/schur_update.cu, a split
     pass and a wgmma + TMA product (csrc/wgmma_split.cuh);
   * K2, `sub_matmul_bigk` (`sub_matmul_pallas_bigk`, kernels
-    `_acc_bigk_kernel` and `_acc_bigk_kernel_x3`): csrc/bigk_gemm.cu;
+    `_acc_bigk_kernel` and `_acc_bigk_kernel_x3`): csrc/bigk_gemm.cu, the
+    same split pass and wgmma + TMA product over (tile, K split) units,
+    with a split-K sum where tiles are few;
   * K4, `matmul` (`matmul_pallas`, kernel `_mm_kernel`): csrc/bigk_gemm.cu.
 Each source is built by `nvcc` for `sm_90a` at first use (ops/_build.py)
 and called through ctypes on PyTorch's current stream. The source notes
@@ -31,14 +33,17 @@ from conflux_tpu_torch.ops.gemm import check_matmul, check_mode
 SCHUR_UPDATE_LAUNCHES = 0       # K3, every route
 SCHUR_UPDATE_WGMMA_LAUNCHES = 0  # K3 split pass + wgmma (every call)
 SUB_MATMUL_BIGK_LAUNCHES = 0    # K2 (its split-K sum included)
+SUB_MATMUL_BIGK_WGMMA_LAUNCHES = 0  # K2 split pass + wgmma (every call)
 MATMUL_LAUNCHES = 0             # K4, every route
 MATMUL_WGMMA_LAUNCHES = 0       # K4 bf16 on TMA-aligned operands: wgmma
 MATMUL_MMA_SYNC_LAUNCHES = 0    # K4 bf16 on other operands: mma.sync
 
 # conflux_matmul's routes (bigk_gemm.cu, MatmulRoute); 0 is the f32 tile
 _ROUTE_MMA_SYNC, _ROUTE_WGMMA = 1, 2
-# conflux_schur_update's route (schur_update.cu, Route)
+# conflux_schur_update's route (schur_update.cu, Route) and
+# conflux_sub_matmul_bigk's (bigk_gemm.cu, BigkRoute)
 _K3_ROUTE_WGMMA = 1
+_K2_ROUTE_WGMMA = 1
 
 _lib = None
 _bigk_lib = None
@@ -72,10 +77,11 @@ def _load_bigk() -> ctypes.CDLL:
         lib = _build.load("bigk_gemm")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.conflux_sub_matmul_bigk.argtypes = [p, i, p, i, i, p, i, p, i,
-                                                i, i, i, i, p, ll, p]
+                                                i, i, i, i, i, p, ll, p,
+                                                ctypes.POINTER(i)]
         lib.conflux_sub_matmul_bigk.restype = i
-        lib.conflux_sub_matmul_bigk_workspace_floats.argtypes = [i, i, i]
-        lib.conflux_sub_matmul_bigk_workspace_floats.restype = ll
+        lib.conflux_sub_matmul_bigk_workspace_bytes.argtypes = [i, i, i, i]
+        lib.conflux_sub_matmul_bigk_workspace_bytes.restype = ll
         lib.conflux_sub_matmul_bigk_splits.argtypes = [i, i, i]
         lib.conflux_sub_matmul_bigk_splits.restype = i
         lib.conflux_sub_matmul_bigk_smem_bytes.argtypes = []
@@ -186,7 +192,7 @@ def split_hi_lo(x: torch.Tensor):
 
 def sub_matmul_bigk_splits(m: int, n: int, k: int) -> int:
     """How many K splits K2 takes for an [m, n] output and depth k on the
-    current card (1: no split-K, no workspace)."""
+    current card (1: no split-K, no partial products)."""
     return _load_bigk().conflux_sub_matmul_bigk_splits(m, n, k)
 
 
@@ -196,13 +202,19 @@ def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
     R [m, n] float32 ('high', 'bf16') or bfloat16 ('bf16out'), A [m, k]
     and B [k, n] float32, all on one CUDA device with unit column stride
-    (any row stride). With k = 0 the result is a copy of R and nothing is
-    launched."""
-    global SUB_MATMUL_BIGK_LAUNCHES
+    (any row stride); B may instead have unit row stride, a transposed
+    view such as `F[k:k+w, :k].T`. The kernel first splits A and B into
+    bf16 hi/lo copies in a workspace allocated here, which also holds
+    split-K's partial products where K splits. With k = 0 the result is a
+    copy of R and nothing is launched."""
+    global SUB_MATMUL_BIGK_LAUNCHES, SUB_MATMUL_BIGK_WGMMA_LAUNCHES
     passes = check_mode(R, mode)
     if A.dtype != torch.float32 or B.dtype != torch.float32:
         raise TypeError(f"A and B must be float32, not {A.dtype}, {B.dtype}")
-    for name, t in (("R", R), ("A", A), ("B", B)):
+    # B stored transposed: unit row stride, read in place by the split pass
+    b_trans = (B.dim() == 2 and B.shape[1] > 1 and B.stride(1) != 1
+               and B.stride(0) == 1)
+    for name, t in (("R", R), ("A", A), ("B", B.T if b_trans else B)):
         _check_2d(name, t, R.device)
     m, n = R.shape
     k = A.shape[1]
@@ -217,23 +229,26 @@ def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if k == 0:
         return out.copy_(R)
     lib = _load_bigk()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(R.device):
-        # split-K's partial products; freed into the caching allocator
-        # after the launch, which orders its reuse on this stream
-        ws_floats = lib.conflux_sub_matmul_bigk_workspace_floats(m, n, k)
-        ws = (torch.empty(ws_floats, dtype=torch.float32, device=R.device)
-              if ws_floats else None)
+        # freed into the caching allocator after the launch, which orders
+        # its reuse on this stream
+        ws_bytes = lib.conflux_sub_matmul_bigk_workspace_bytes(m, n, k,
+                                                               passes)
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=R.device)
         stream = torch.cuda.current_stream(R.device).cuda_stream
         err = lib.conflux_sub_matmul_bigk(
             R.data_ptr(), R.stride(0), out.data_ptr(), out.stride(0),
             int(mode == "bf16out"), A.data_ptr(), A.stride(0),
-            B.data_ptr(), B.stride(0), m, n, k, passes,
-            None if ws is None else ws.data_ptr(), ws_floats, stream)
+            B.data_ptr(), B.stride(1 if b_trans else 0), int(b_trans), m, n,
+            k, passes, ws.data_ptr(), ws_bytes, stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError("sub_matmul_bigk launch failed: "
                            + lib.conflux_bigk_gemm_error_string(err)
                            .decode())
     SUB_MATMUL_BIGK_LAUNCHES += 1
+    if route.value == _K2_ROUTE_WGMMA:
+        SUB_MATMUL_BIGK_WGMMA_LAUNCHES += 1
     return out
 
 

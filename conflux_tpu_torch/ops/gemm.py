@@ -93,6 +93,18 @@ def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     raise ValueError(f"no big-K kernel for device {R.device}")
 
 
+def sub_dot(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            precision: str) -> torch.Tensor:
+    """R - A @ B as a new tensor in a driver's `precision`, R float32: K2
+    (`sub_matmul_bigk`) in 'high' and 'bf16', whose plain version is
+    `R - schur_dot(A, B, precision)` bit for bit; that expression itself in
+    'highest' (IEEE fp32 `torch.mm`) and 'bf16out' (the product rounded to
+    bf16 first, as the JAX drivers form it)."""
+    if precision in ("high", "bf16"):
+        return sub_matmul_bigk(R, A, B, precision)
+    return R - schur_dot(A, B, precision)
+
+
 def check_matmul(a: torch.Tensor, b: torch.Tensor):
     """Raise unless a [m, k] and b [k, n] are both float32 or both
     bfloat16."""

@@ -3,10 +3,10 @@
 PyTorch counterpart of `conflux_tpu/ops/tri.py`. The panel TRSMs are the
 stable blocked substitution of the JAX package: only <= `_TRSM_SUB`-wide
 diagonal blocks are ever inverted (nilpotent squaring, all matmuls), and
-everything else is a GEMM. Every matrix product here that forms
-multipliers or factors runs in IEEE fp32: the package never enables TF32
-(`torch.backends.cuda.matmul.allow_tf32` stays False and the fp32 matmul
-precision stays "highest", PyTorch's defaults).
+everything else is a GEMM. Every fp32 matrix product here that forms
+multipliers or factors is IEEE fp32 when it runs under the package's
+entry points: each one pins PyTorch's fp32 matmul precision to "ieee" for
+its call (`precision.ieee_fp32`), whatever TF32 setting the caller chose.
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from conflux_tpu_torch.precision import ieee_fp32
 
+
+@ieee_fp32()
 def lu_solve(F: torch.Tensor, perm: torch.Tensor,
              b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b given (F, perm) from lu_factor (A[perm] = L U)."""
@@ -23,6 +26,7 @@ def lu_solve(F: torch.Tensor, perm: torch.Tensor,
     return X[:, 0] if squeeze else X
 
 
+@ieee_fp32()
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b given the lower Cholesky factor L (A = L L^T)."""
     squeeze = b.dim() == 1

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from conflux_tpu_torch.precision import ieee_fp32
+
 
 def lu_residual_dense(A, F, perm) -> float:
     """||PA - LU||_F / (N ||A||_F) on host arrays, in float64."""
@@ -24,14 +26,16 @@ def lu_residual_dense(A, F, perm) -> float:
     return float(np.linalg.norm(R) / (n * np.linalg.norm(A)))
 
 
+@ieee_fp32()
 def lu_residual_blocked(A: torch.Tensor, F: torch.Tensor, perm: torch.Tensor,
                         block: int = 4096) -> float:
     """FULL ||PA - LU||_F / (N ||A||_F) on the factors' device, for factors
     too large for a dense float64 reconstruction: U = triu(F[:n]) is formed
     once, and A and L stream through in `block`-row slices, so the device
     holds A, F, U and two row blocks. The reconstruction is IEEE fp32
-    (TF32 stays off); the block sums accumulate in float64 on the device,
-    and the one host read is the final scalar."""
+    (`precision.ieee_fp32`, whatever the caller set); the block sums
+    accumulate in float64 on the device, and the one host read is the
+    final scalar."""
     F = torch.as_tensor(F)
     dev = F.device
     A = torch.as_tensor(A, device=dev)
@@ -63,14 +67,15 @@ def cholesky_residual_dense(A, L) -> float:
     return float(np.linalg.norm(A - L @ L.T) / (n * np.linalg.norm(A)))
 
 
+@ieee_fp32()
 def cholesky_residual_blocked(A: torch.Tensor, L: torch.Tensor,
                               block: int = 4096) -> float:
     """FULL ||A - L L^T||_F / (N ||A||_F) on the factor's device, for
     factors too large for a dense float64 reconstruction: L (lower
     triangular, as `cholesky` returns it) stays where it is and A streams
     through in `block`-row slices, so the device holds A, L and two row
-    blocks. IEEE fp32 reconstruction, float64 block sums on the device,
-    one host read of the final scalar."""
+    blocks. IEEE fp32 reconstruction (`precision.ieee_fp32`), float64
+    block sums on the device, one host read of the final scalar."""
     L = torch.as_tensor(L)
     dev = L.device
     A = torch.as_tensor(A, device=dev)

@@ -1,9 +1,11 @@
 """A/B of kernel builds in one call: K1 (rank1_panel.cu), K3
-(schur_update.cu), K4 (bigk_gemm.cu) and K5/K6 (row_move.cu).
+(schur_update.cu), K2 and K4 (bigk_gemm.cu) and K5/K6 (row_move.cu); and
+K2 against its plain version at the step shapes of a crout and a Cholesky
+factorization.
 
     python3 -m experiments.torch_kernel_ab --lib old=_ab/old \
         --lib new=conflux_tpu_torch/csrc [--lib name=dir ...] [--quick] \
-        [--only k1|k3|k4|rows]
+        [--only k1|k2|k3|k4|rows] [--steps]
 
 Each --lib names a directory holding some of those sources (with the
 csrc/ headers they include, or beside csrc/, whose headers are on the
@@ -13,20 +15,31 @@ and loaded with ctypes. An earlier commit's sources go into a gitignored
 directory with `git show <commit>:conflux_tpu_torch/csrc/...`. Each
 entry point's present C interface is taken and, where it changed, the
 earlier one too (K1 and K4 report their route through a last int*
-argument that the earlier builds lack; the present K3 takes a workspace
-for its split operands, the earlier one none).
+argument that the earlier builds lack; the present K3 and K2 take a
+workspace in bytes for their split operands and report their route, the
+earlier K3 takes none and the earlier K2 a float count for split-K alone).
 
 Then, on the card, each build's kernels run at chip_smoke.py's shapes: K1
 at the main paths' blocks and the cluster/grid boundary, K3 at the flat
-LU's first and mid-run trailing updates in its three modes, K4 at the
-three prof_pallas_gemm shapes for f32 and bf16, K5/K6 at the [32768,
-32768] row moves and the split path's panel gather. Builds take turns per
-shape (a, b, ..., b, a), each timed as timing.per_call_ms (back-to-back
-calls between two events), and every result is compared with the plain
-version (K1: pivots equal and within 1e-4 of max|ref|; K3 and K4 within
-1e-5 of max(|A|@|B|), plus one bf16 ulp for K3 'bf16out'; K5/K6 bit for
-bit). Prints one line per shape and build, and the card's name and power
-limit.
+LU's first and mid-run trailing updates in its three modes, K2 at
+chip_smoke.K2_SHAPES in its three modes, K4 at the three prof_pallas_gemm
+shapes for f32 and bf16, K5/K6 at the [32768, 32768] row moves and the
+split path's panel gather. Builds take turns per shape (a, b, ..., b, a),
+each timed as timing.per_call_ms (back-to-back calls between two events),
+and every result is compared with the plain version (K1: pivots equal and
+within 1e-4 of max|ref|; K2, K3 and K4 within 1e-5 of max(|A|@|B|), plus
+one bf16 ulp for 'bf16out'; K5/K6 bit for bit). Prints one line per shape
+and build, and the card's name and power limit.
+
+--steps times the package's K2 (ops/cuda_gemm.sub_matmul_bigk) against
+its plain version (`R - schur_dot(A, B, mode)`, what the drivers ran
+before they routed these products through K2) in turns, in 'high' and
+'bf16', at every big-K product of one N=32768, v=1536 factorization: crout
+'gather' at partition 1 (the panel update [N - k, k] x [k, 1536] and the
+pivot-row refresh [1536, k] x [k, N - k - 1536]) and flat Cholesky (the
+panel update [N - k, k] x [k, 1536], its B the view F[k:k+w, :k].T), as
+strided slices of [N, N] buffers the way the paths take them; prints each
+step and the sums over each factorization.
 """
 
 import argparse
@@ -56,6 +69,15 @@ K1_CASES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
 # K3 (tag, m, ncols, k, c0, c1): chip_smoke's flat updates
 K3_SHAPES = (("first", 32768, 32768, 1536, 1536, 32768),
              ("mid", 17408, 32768, 1536, 16896, 32768))
+# K2 (tag, m, k, n): chip_smoke.K2_SHAPES (chip_smoke.py is not imported:
+# it is a script)
+# (without the Cholesky shape: PR 5's K2 takes no transposed B)
+K2_SHAPES = (("panel k=1536", 31232, 1536, 1536),
+             ("panel k=15360", 17408, 15360, 1536),
+             ("panel k=30720", 2048, 30720, 1536),
+             ("refresh k=15360", 1536, 15360, 15872),
+             ("refresh k=30720", 1536, 30720, 512),
+             ("ragged", 1000, 3001, 300))
 
 
 def build(libs):
@@ -202,6 +224,151 @@ def schur_fn(lib):
             raise RuntimeError(f"conflux_schur_update error {err}")
         return R
     return run
+
+
+def bigk_fn(lib):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f = lib.conflux_sub_matmul_bigk
+    split = hasattr(lib, "conflux_sub_matmul_bigk_workspace_bytes")
+    if split:
+        f.argtypes = [p, i, p, i, i, p, i, p, i, i, i, i, i, i, p, ll, p,
+                      ctypes.POINTER(i)]
+        size = lib.conflux_sub_matmul_bigk_workspace_bytes
+        size.argtypes = [i, i, i, i]
+    else:
+        f.argtypes = [p, i, p, i, i, p, i, p, i, i, i, i, i, p, ll, p]
+        size = lib.conflux_sub_matmul_bigk_workspace_floats
+        size.argtypes = [i, i, i]
+    size.restype = ll
+    f.restype = i
+
+    def run(R, A, B, mode):
+        from conflux_tpu_torch.ops.gemm import MODES
+
+        passes = MODES[mode][1]
+        m, k = A.shape
+        n = B.shape[1]
+        out = torch.empty((m, n), dtype=R.dtype, device="cuda")
+        args = [R.data_ptr(), R.stride(0), out.data_ptr(), out.stride(0),
+                int(mode == "bf16out"), A.data_ptr(), A.stride(0),
+                B.data_ptr(), B.stride(0)]
+        stream = torch.cuda.current_stream().cuda_stream
+        if split:
+            nb = size(m, n, k, passes)
+            ws = torch.empty(nb, dtype=torch.uint8, device="cuda")
+            route = ctypes.c_int(-1)
+            err = f(*args, 0, m, n, k, passes, ws.data_ptr(), nb, stream,
+                    ctypes.byref(route))
+        else:
+            nf = size(m, n, k)
+            ws = torch.empty(max(nf, 1), dtype=torch.float32, device="cuda")
+            err = f(*args, m, n, k, passes, ws.data_ptr(), nf, stream)
+        if err:
+            raise RuntimeError(f"conflux_sub_matmul_bigk error {err}")
+        return out
+    return run
+
+
+def _k2_bad(got, ref, tol, mode):
+    """Elements of a K2 result off its plain version: the fp32 summation
+    tolerance, plus one bf16 ulp where the result is bf16."""
+    d = (got.float() - ref.float()).abs()
+    if mode == "bf16out":
+        _, e = torch.frexp(ref.float())
+        return int((d > torch.ldexp(torch.ones_like(d), e - 8) + tol).sum())
+    return int((d > tol).sum())
+
+
+def ab_k2(libs, quick):
+    from conflux_tpu_torch.ops.gemm import _sub_matmul_bigk_t
+
+    names = [n for n in libs if "bigk_gemm" in libs[n]]
+    fns = {n: bigk_fn(libs[n]["bigk_gemm"]) for n in names}
+    shapes = K2_SHAPES[:2] if quick else K2_SHAPES
+    for si, (tag, m, k, n) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(900 + si)
+        A = torch.randn(m, k, generator=g, device="cuda")
+        B = torch.randn(k, n, generator=g, device="cuda")
+        R32 = torch.randn(m, n, generator=g, device="cuda")
+        tol = 1e-5 * float(torch.mm(A.abs(), B.abs()).max())
+        splits = cuda_gemm.sub_matmul_bigk_splits(m, n, k)
+        for mode in ("high", "bf16", "bf16out"):
+            R = R32.to(torch.bfloat16) if mode == "bf16out" else R32
+            ref = _sub_matmul_bigk_t(R, A, B, mode)
+            times = {nm: [] for nm in names}
+            for nm in turns(names):
+                got = fns[nm](R, A, B, mode)
+                torch.cuda.synchronize()
+                bad = _k2_bad(got, ref, tol, mode)
+                if bad:
+                    raise SystemExit(f"K2 {nm} {tag} {mode}: {bad} elements "
+                                     "off the plain version")
+                del got
+                times[nm].append(per_call_ms(fns[nm], R, A, B, mode))
+            t_p = per_call_ms(_sub_matmul_bigk_t, R, A, B, mode)
+            flop = 2.0 * m * n * k
+            for nm in names:
+                best = min(times[nm])
+                print(f"K2 {tag} [{m} x {n}, k {k}] {mode:7s} {nm:8s}: "
+                      f"{[round(t, 3) for t in times[nm]]} ms, best "
+                      f"{best:.3f} ms ({flop / best / 1e9:.1f} TFLOP/s of "
+                      f"A@B; package splits {splits}), plain {t_p:.3f} ms")
+            del ref
+        del A, B, R32
+        torch.cuda.empty_cache()
+
+
+def path_steps(modes=("high", "bf16")):
+    """K2 against its plain version at each big-K product of one N, V crout
+    'gather' and one flat Cholesky factorization, in turns (plain, K2, K2,
+    plain)."""
+    from conflux_tpu_torch.ops.gemm import _sub_matmul_bigk_t
+
+    g = torch.Generator(device="cuda").manual_seed(42)
+    R = torch.randn(N, N, generator=g, device="cuda")
+    F = torch.randn(N, N, generator=g, device="cuda")
+    # Cholesky's B takes F[k:k+w, :k].T's strides from a buffer of its own:
+    # F's own rows times themselves sum k positive terms, whose rounding in
+    # two summation orders drifts past the 1e-5 * max(|A|@|B|) check
+    G = torch.randn(N, N, generator=g, device="cuda")
+    crout, chol = [], []
+    for k in range(V, N, V):
+        w = min(V, N - k)
+        m_r = N - k
+        # the panel update, then (where columns remain) the refresh of the
+        # w pivot rows Rpiv, a [w, N] gather
+        crout.append((f"panel k={k}", R[:m_r, k:k + w], R[:m_r, :k],
+                      F[:k, k:k + w]))
+        if k + w < N:
+            crout.append((f"refresh k={k}", R[:w, k + w:], R[:w, :k],
+                          F[:k, k + w:]))
+        chol.append((f"panel k={k}", F[k:, k:k + w], F[k:, :k],
+                     G[k:k + w, :k].T))
+    for path, calls in (("crout", crout), ("Cholesky", chol)):
+        for mode in modes:
+            sums = {"K2": 0.0, "plain": 0.0}
+            for tag, Rs, A, B in calls:
+                tol = 1e-5 * float(torch.mm(A.abs(), B.abs()).max())
+                bad = _k2_bad(cuda_gemm.sub_matmul_bigk(Rs, A, B, mode),
+                              _sub_matmul_bigk_t(Rs, A, B, mode), tol, mode)
+                if bad:
+                    raise SystemExit(f"K2 {path} {tag} {mode}: {bad} elements "
+                                     "off")
+                t_p = per_call_ms(_sub_matmul_bigk_t, Rs, A, B, mode)
+                t_k = per_call_ms(cuda_gemm.sub_matmul_bigk, Rs, A, B, mode)
+                t_k = min(t_k, per_call_ms(cuda_gemm.sub_matmul_bigk, Rs, A, B,
+                                           mode))
+                t_p = min(t_p, per_call_ms(_sub_matmul_bigk_t, Rs, A, B, mode))
+                sums["K2"] += t_k
+                sums["plain"] += t_p
+                print(f"{path} {mode} {tag} [{A.shape[0]} x {B.shape[1]}, k "
+                      f"{A.shape[1]}]: K2 {t_k:.3f} ms, plain (schur_dot + "
+                      f"subtract) {t_p:.3f} ms, K2/plain {t_k / t_p:.3f}")
+            print(f"{path} {mode} over the factorization's {len(calls)} "
+                  f"big-K products: K2 {sums['K2']:.3f} ms, plain "
+                  f"{sums['plain']:.3f} ms, K2/plain "
+                  f"{sums['K2'] / sums['plain']:.3f}")
+            torch.cuda.empty_cache()
 
 
 def ab_k1(libs, quick, unchecked=False):
@@ -466,8 +633,11 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="fewer shapes of each kernel")
     ap.add_argument("--only", action="append",
-                    choices=("k1", "k3", "k4", "rows"),
+                    choices=("k1", "k2", "k3", "k4", "rows"),
                     help="run only these kernels' A/B (repeatable)")
+    ap.add_argument("--steps", action="store_true",
+                    help="K2 against its plain version at the step shapes "
+                    "of a crout and a Cholesky factorization")
     ap.add_argument("--unchecked", action="store_true",
                     help="K1, K3: time builds that disagree with the plain "
                     "version (variants that leave out work, to attribute "
@@ -483,14 +653,16 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}")
-    only = set(args.only or ("k1", "k3", "k4", "rows"))
+    only = set(args.only or ("k1", "k2", "k3", "k4", "rows"))
     if "k1" in only:
         ab_k1(libs, args.quick, args.unchecked)
     if "k3" in only:
         ab_k3(libs, args.quick, args.unchecked)
-    for key, fn in (("k4", ab_k4), ("rows", ab_rows)):
+    for key, fn in (("k2", ab_k2), ("k4", ab_k4), ("rows", ab_rows)):
         if key in only:
             fn(libs, args.quick)
+    if args.steps:
+        path_steps()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device-time split of one factorization by the PyTorch port, on a card.
 
-    python3 -m experiments.torch_profile --scheme flat
+    python3 -m experiments.torch_profile --scheme flat [--pin-ab]
 
 `--scheme` is crout, flat, recursive, cholesky, or swap or split (crout
 with that compaction). At N=32768, v=1536, 'high' (chip_smoke.py's paths
@@ -12,8 +12,11 @@ the `DeviceType.CUDA` rows of `key_averages()` by kernel group (the
 `aten::` rows repeat their kernels' time and are left out). Prints the
 groups in order, the device-busy total against the median unprofiled
 wall time (the idle share; a negative one means the profiled run's device
-time exceeded the unprofiled wall, and the numbers are not comparable), and
-the card's name and power limit. Imports no jax.
+time exceeded the unprofiled wall, and the numbers are not comparable), the
+profiled run's peak device memory (A included), and the card's name and
+power limit. With --pin-ab it first times the public entry point against
+the same function without its IEEE fp32 pin (`__wrapped__`, precision.py)
+in turns, REPS runs each, to show what the pin costs. Imports no jax.
 """
 
 import argparse
@@ -28,8 +31,8 @@ N, V, PRECISION = 32768, 1536, "high"
 REPS = 2
 # kernel-name substrings, first match wins
 GROUPS = (
-    ("K3 split pass + schur_update_wgmma_kernel",
-     ("schur_update_wgmma_kernel", "split_hi_lo_kernel")),
+    ("split pass of K3 and K2", ("split_hi_lo_kernel",)),
+    ("K3 schur_update_wgmma_kernel", ("schur_update_wgmma_kernel",)),
     ("K2 sub_matmul_bigk (+ split-K sum)", ("sub_matmul_bigk_kernel",
                                             "bigk_reduce_kernel")),
     ("K5 scatter_rows_kernel", ("scatter_rows_kernel",)),
@@ -61,6 +64,8 @@ def main():
     ap.add_argument("--scheme", default="flat",
                     choices=["crout", "flat", "recursive", "cholesky",
                              "swap", "split"])
+    ap.add_argument("--pin-ab", action="store_true",
+                    help="time the entry point against its unpinned body")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
@@ -76,26 +81,39 @@ def main():
         A.mul_(0.5)
         A.diagonal().add_(float(n))
 
-        def run():
-            return cholesky(A, V, PRECISION)
+        def run(fn=cholesky):
+            return fn(A, V, PRECISION)
     else:
         A = 5.0 + torch.rand(n, n, generator=g, device="cuda")
         compact = args.scheme in ("swap", "split")
         scheme = "crout" if compact else args.scheme
         compaction = args.scheme if compact else "gather"
 
-        def run():
-            return lu_factor(A, V, PRECISION, scheme=scheme,
-                             compaction=compaction)
+        def run(fn=lu_factor):
+            return fn(A, V, PRECISION, scheme=scheme, compaction=compaction)
 
     run()
     torch.cuda.synchronize()
+    if args.pin_ab:
+        entry = cholesky if args.scheme == "cholesky" else lu_factor
+        ab = {"pinned": [], "unpinned": []}
+        for _ in range(REPS):
+            for name in ("pinned", "unpinned", "unpinned", "pinned"):
+                fn = entry if name == "pinned" else entry.__wrapped__
+                ab[name].append(timed_run(run, fn)[0])
+        print(f"{args.scheme}: walls with the IEEE fp32 pin "
+              f"{[round(t, 3) for t in ab['pinned']]} ms (median "
+              f"{statistics.median(ab['pinned']):.3f}), without "
+              f"{[round(t, 3) for t in ab['unpinned']]} ms (median "
+              f"{statistics.median(ab['unpinned']):.3f})")
     walls = [timed_run(run)[0] for _ in range(REPS)]
     wall = statistics.median(walls)
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     sums = defaultdict(float)
     counts = defaultdict(int)
     for ev in prof.key_averages():
@@ -115,7 +133,7 @@ def main():
           f"unprofiled wall ms {[round(t, 3) for t in walls]} (median "
           f"{wall:.3f}), device busy {busy:.3f} ms in the profiled run, "
           f"idle share {1 - busy / wall:.3f} of the unprofiled "
-          f"median")
+          f"median, peak device memory {peak / 2 ** 30:.3f} GiB")
     for label, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
         print(f"  {label:32s} {ms:10.3f} ms {counts[label]:8d} launches "
               f"{100 * ms / busy:6.1f} %")

@@ -117,6 +117,33 @@ def test_cholesky_leaves_input_unchanged(rng, scheme):
     assert validation.cholesky_residual_dense(A0, L) <= GATE
 
 
+@pytest.mark.parametrize("precision,routed", [("high", True),
+                                              ("bf16", False),
+                                              ("highest", False)])
+def test_flat_cholesky_runs_its_panel_update_through_k2(rng, monkeypatch,
+                                                        precision, routed):
+    # 'high' sends each step's panel update (k > 0) through
+    # ops/gemm.sub_matmul_bigk, K2 on the card, with B the transposed view
+    # F[k:k+w, :k].T; on the CPU its plain version is the expression it
+    # replaced, bit for bit
+    n, v = 100, 32
+    A = torch.from_numpy(_spd(rng, n))
+    seen = []
+    inner = tchol.sub_matmul_bigk
+
+    def spy(R, X, Y, mode):
+        seen.append((mode, Y.stride(0) == 1 and Y.stride(1) != 1))
+        return inner(R, X, Y, mode)
+
+    monkeypatch.setattr(tchol, "sub_matmul_bigk", spy)
+    L = tchol.cholesky(A, v=v, precision=precision)
+    steps = -(-n // v)
+    assert seen == ([(precision, True)] * (steps - 1) if routed else [])
+    monkeypatch.setattr(tchol, "sub_matmul_bigk",
+                        lambda R, X, Y, p: R - ttri.schur_dot(X, Y, p))
+    assert torch.equal(L, tchol.cholesky(A, v=v, precision=precision))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
 def test_cholesky_rejects_unported_dtypes(dtype):
     with pytest.raises(ConfluxError, match="ROADMAP item 7") as e:

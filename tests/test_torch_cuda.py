@@ -1,10 +1,12 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written kernels
 K1 (conflux_tpu_torch/csrc/rank1_panel.cu), K3 (csrc/schur_update.cu), K2
 and K4 (csrc/bigk_gemm.cu), K5 and K6 (csrc/row_move.cu) against their
-plain PyTorch versions, K3's split pass against ops/tri._split_hi_lo bit
-for bit, the routes of K1, K3, K4 and K5/K6 by their launch counters,
-and the crout LU (all three compactions), the flat LU and the Cholesky end
-to end on the card. Without a card every test here skips.
+plain PyTorch versions, the split pass of K3 and K2 against
+ops/tri._split_hi_lo bit for bit, the routes of K1, K2, K3, K4 and K5/K6
+by their launch counters, the crout LU (all three compactions), the flat
+LU and the Cholesky end to end on the card, and the entry points' results
+bit-identical whatever TF32 setting the caller chose. Without a card every
+test here skips.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -26,6 +28,7 @@ from conflux_tpu_torch.ops.gemm import (
 from conflux_tpu_torch.ops.panel import _rank1_block_t
 from conflux_tpu_torch.ops.scatter import _gather_rows_t, _scatter_rows_t
 from conflux_tpu_torch.ops.tri import _split_hi_lo
+from conflux_tpu_torch.solve import cho_solve, lu_solve
 from conflux_tpu_torch.validation import (
     cholesky_residual_blocked,
     lu_residual_blocked,
@@ -177,13 +180,17 @@ def test_kernel_wrapper_checks_its_inputs(card):
 
 @pytest.mark.parametrize("precision", ["high", "highest"])
 def test_crout_on_card_meets_gate(card, precision):
-    # the main path at a small size: every panel block goes through K1
+    # the main path at a small size: every panel block goes through K1, and
+    # in 'high' every big-K product through K2 (the panel update of each
+    # step with k > 0, the pivot-row refresh of each with k + w < n too)
     n, v = 1024, 256
     g = torch.Generator(device=card).manual_seed(3)
     A = torch.randn(n, n, generator=g, device=card)
-    before = cuda_panel.LAUNCHES
+    before = (cuda_panel.LAUNCHES, cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES)
     F, perm = lu_factor(A, v=v, precision=precision)
-    assert cuda_panel.LAUNCHES - before == (n // v) * (v // 128)
+    assert cuda_panel.LAUNCHES - before[0] == (n // v) * (v // 128)
+    assert cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES - before[1] == (
+        2 * (n // v) - 3 if precision == "high" else 0)
     assert F.is_cuda and bool(torch.isfinite(F).all())
     assert torch.equal(torch.sort(perm).values, torch.arange(n, device=card))
     assert lu_residual_blocked(A, F, perm) <= 1e-6
@@ -253,10 +260,12 @@ def test_k3_ragged_and_strided_on_card(card, m, ncols, k, c0, c1, mode):
     _k3_check(R, A, B, c0, c1, mode)
 
 
-def test_k3_split_pass_is_bit_identical(card):
+@pytest.mark.parametrize("offset", [3, 4])
+def test_k3_split_pass_is_bit_identical(card, offset):
     # ops/tri._split_hi_lo on the same tensor, bit for bit: normal values,
     # bf16 rounding ties, subnormals, signed zeros, infinities and NaN, in
-    # a strided view
+    # a strided view whose rows start off 16 bytes (element copies) or on
+    # them (16-byte loads)
     g = torch.Generator(device=card).manual_seed(31)
     x = torch.randn(300, 211, generator=g, device=card) * 1e3
     x[0, :8] = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
@@ -268,7 +277,7 @@ def test_k3_split_pass_is_bit_identical(card):
     x[1, :4] = ties
     x[2] = torch.ldexp(torch.rand(211, generator=g, device=card),
                        torch.full((211,), -140.0, device=card))
-    view = x[:, 3:200]
+    view = x[:, offset:200]
     hi, lo = cuda_gemm.split_hi_lo(view)
     torch.cuda.synchronize()
     rh, rl = _split_hi_lo(view)
@@ -319,22 +328,29 @@ def test_flat_on_card_meets_gate(card, precision):
 
 
 def test_cholesky_on_card_meets_gate(card):
+    # every tile through K1 forced; every panel update with k > 0 through
+    # K2, its B a transposed view
     n, v = 1024, 256
     g = torch.Generator(device=card).manual_seed(5)
     X = torch.rand(n, n, generator=g, device=card)
     A = (X + X.T) / 2 + n * torch.eye(n, device=card)
-    before = cuda_panel.LAUNCHES
+    before = (cuda_panel.LAUNCHES, cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES)
     L = cholesky(A, v=v, precision="high")
     torch.cuda.synchronize()
-    assert cuda_panel.LAUNCHES - before == (n // v) * (v // 64)
+    assert cuda_panel.LAUNCHES - before[0] == (n // v) * (v // 64)
+    assert cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES - before[1] == n // v - 1
     assert torch.equal(L, torch.tril(L))
     assert cholesky_residual_blocked(A, L) <= 1e-6
 
 
 # K2 (m, n, k): a tile-aligned call with enough tiles to run unsplit, a
-# ragged one with a long K that the kernel splits across blocks, and R and
-# A as strided column slices
-K2_CASES = [(2048, 2048, 512), (300, 200, 4096), (1000, 37, 1500)]
+# ragged one with a long K that the kernel splits across units, a 37-wide
+# output (not 16-byte rows: stores from registers), the crout refresh at
+# k = 30720 (its most heavily split call: [1536, 512], 22 splits on 132
+# SMs), and a 300-wide output whose bf16 rows (600 bytes) break TMA's
+# rules; R and A are strided column slices
+K2_CASES = [(2048, 2048, 512), (300, 200, 4096), (1000, 37, 1500),
+            (1536, 512, 30720), (1000, 300, 200)]
 
 
 @pytest.mark.parametrize("mode", ["high", "bf16", "bf16out"])
@@ -351,10 +367,13 @@ def test_k2_matches_plain_on_card(card, m, n, k, mode):
         R = R.to(torch.bfloat16)
     R0 = R.clone()
     ref = _sub_matmul_bigk_t(R, A, B, mode)
-    before = cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES
+    before = (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
+              cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES)
     got = cuda_gemm.sub_matmul_bigk(R, A, B, mode)
     torch.cuda.synchronize()
-    assert cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES == before + 1
+    assert (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
+            cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES) == (before[0] + 1,
+                                                          before[1] + 1)
     assert torch.equal(R, R0) and got.dtype == R.dtype
     tol = 1e-5 * float(torch.mm(A.abs(), B.abs()).max())
     d = (got.float() - ref.float()).abs()
@@ -366,10 +385,60 @@ def test_k2_matches_plain_on_card(card, m, n, k, mode):
     assert torch.equal(got, cuda_gemm.sub_matmul_bigk(R, A, B, mode))
 
 
+def _k2_plan_splits(m, n, k, sms):
+    """K2's rule: [128, 256] tiles, K chunks of 64; split only below four
+    waves of tiles, at least 16 chunks a split, no split left empty."""
+    tiles = -(-m // 128) * -(-n // 256)
+    chunks = -(-k // 64)
+    splits = 1
+    if tiles < 4 * sms:
+        splits = max(1, min(-(-4 * sms // tiles), chunks // 16))
+    per = -(-chunks // splits)
+    return -(-chunks // per)
+
+
+@pytest.mark.parametrize("mode", ["high", "bf16", "bf16out"])
+@pytest.mark.parametrize("m,n,k", [(1000, 300, 700), (640, 256, 2500)])
+def test_k2_reads_a_transposed_b_on_card(card, m, n, k, mode):
+    # Cholesky's B is the view F[k:k+w, :k].T (unit row stride): the split
+    # pass reads it in place, ragged 32 x 32 tiles included; the second
+    # shape splits K
+    g = torch.Generator(device=card).manual_seed(m + k)
+    A = torch.randn(m, k, generator=g, device=card)
+    B = torch.randn(n, k + 40, generator=g, device=card)[:, 7:7 + k].T
+    R = torch.randn(m, n, generator=g, device=card)
+    if mode == "bf16out":
+        R = R.to(torch.bfloat16)
+    assert B.stride(0) == 1
+    ref = _sub_matmul_bigk_t(R, A, B, mode)
+    got = cuda_gemm.sub_matmul_bigk(R, A, B, mode)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(torch.mm(A.abs(), B.abs()).max())
+    d = (got.float() - ref.float()).abs()
+    if mode == "bf16out":
+        assert bool((d <= _bf16_ulp(ref) + tol).all())
+    else:
+        assert float(d.max()) <= tol
+    # the same values through a row-major B give the same bits
+    assert torch.equal(got, cuda_gemm.sub_matmul_bigk(R, A, B.contiguous(),
+                                                      mode))
+
+
 def test_k2_splits_k_only_short_of_tiles(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    shapes = [(2048, 2048, 512), (300, 200, 4096), (31232, 1536, 1536),
+              (17408, 1536, 15360), (2048, 1536, 30720), (1536, 512, 30720),
+              (1536, 15872, 15360)]
+    for m, n, k in shapes:
+        assert cuda_gemm.sub_matmul_bigk_splits(m, n, k) == _k2_plan_splits(
+            m, n, k, sms)
     assert cuda_gemm.sub_matmul_bigk_splits(2048, 2048, 512) == 1
     assert cuda_gemm.sub_matmul_bigk_splits(300, 200, 4096) > 1
     assert cuda_gemm.sub_matmul_bigk_splits(31232, 1536, 1536) == 1
+    if sms == 132:
+        # the crout path's late panel update and refresh
+        assert cuda_gemm.sub_matmul_bigk_splits(2048, 1536, 30720) == 6
+        assert cuda_gemm.sub_matmul_bigk_splits(1536, 512, 30720) == 22
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -577,3 +646,57 @@ def test_k5_push_up_rows_on_card(card, dtype):
     torch.cuda.synchronize()
     assert cuda_scatter.SCATTER_ROWS_BULK_LAUNCHES == before + 1
     assert torch.equal(R, want)
+
+
+def _knobs():
+    return (torch.backends.cuda.matmul.fp32_precision,
+            torch.backends.mkldnn.matmul.fp32_precision)
+
+
+def _entry_results(A, S, b):
+    """crout, flat and Cholesky at 'highest', both solves and the blocked
+    residuals, on the card."""
+    out = []
+    for scheme in ("crout", "flat"):
+        F, perm = lu_factor(A, v=256, scheme=scheme)
+        out += [F, perm, torch.tensor(lu_residual_blocked(A, F, perm))]
+    out.append(lu_solve(F, perm, b))
+    L = cholesky(S, v=256)
+    out += [L, torch.tensor(cholesky_residual_blocked(S, L)),
+            cho_solve(L, b)]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("api", ["legacy", "new"])
+def test_tf32_on_leaves_results_bit_identical(card, api):
+    # the caller turns TF32 on; the entry points pin IEEE fp32 for their
+    # own products and give the caller's settings back
+    n = 1024
+    g = torch.Generator(device=card).manual_seed(8)
+    A = torch.randn(n, n, generator=g, device=card)
+    X = torch.rand(n, n, generator=g, device=card)
+    S = (X + X.T) / 2 + n * torch.eye(n, device=card)
+    b = torch.randn(n, generator=g, device=card)
+    saved = _knobs()
+    ref = _entry_results(A, S, b)
+    try:
+        if api == "legacy":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+        else:
+            torch.backends.cuda.matmul.fp32_precision = "tf32"
+        before = _knobs()
+        got = _entry_results(A, S, b)
+        assert _knobs() == before
+        if api == "legacy":
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+            assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        if api == "legacy":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+        for knob, value in zip((torch.backends.cuda.matmul,
+                                torch.backends.mkldnn.matmul), saved):
+            knob.fp32_precision = value
+    assert all(torch.equal(r, g) for r, g in zip(ref, got))

@@ -161,6 +161,19 @@ def test_build_digest_covers_the_headers_a_source_includes(tmp_path,
     assert _build._digest("two") == two
 
 
+def test_build_digest_covers_headers_included_by_headers(tmp_path,
+                                                         monkeypatch):
+    # a header reached through another header (wgmma_tile.cuh through
+    # wgmma_split.cuh) rebuilds the sources that include the outer one
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (tmp_path / "one.cu").write_text('#include "outer.cuh"\n// one\n')
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    one = _build._digest("one")
+    (tmp_path / "inner.cuh").write_text("// inner, edited\n")
+    assert _build._digest("one") != one
+
+
 def test_build_digest_of_the_package_kernels():
     names = ("rank1_panel", "schur_update", "bigk_gemm", "row_move")
     digests = {_build._digest(n) for n in names}

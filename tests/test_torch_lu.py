@@ -36,6 +36,7 @@ import conflux_tpu_torch
 from conflux_tpu_torch import interop, validation
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
 from conflux_tpu_torch.lu import single as tsingle
+from conflux_tpu_torch.ops import gemm as tgemm
 from conflux_tpu_torch.ops.scatter import gather_rows, scatter_rows
 
 GATE = 1e-6
@@ -250,6 +251,35 @@ def test_crout_swap_single_panel_equals_gather(rng, m, n):
     Fs, ps = tsingle.lu_factor(A, v=n, compaction="swap")
     Fg, pg = tsingle.lu_factor(A, v=n, compaction="gather")
     assert torch.equal(ps, pg) and torch.equal(Fs, Fg)
+
+
+@pytest.mark.parametrize("precision,routed", [("high", True),
+                                              ("bf16", True),
+                                              ("bf16out", False),
+                                              ("highest", False)])
+def test_crout_gather_runs_its_big_k_products_through_k2(rng, monkeypatch,
+                                                         precision, routed):
+    # 'high' and 'bf16' send the panel update (every step with k > 0) and
+    # the pivot-row refresh (k > 0 and k + w < n) through
+    # ops/gemm.sub_matmul_bigk, K2 on the card; on the CPU its plain version
+    # is R - schur_dot(A, B), the expression it replaced, bit for bit
+    m, n, v = 160, 100, 32
+    A = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    calls = []
+    inner = tgemm.sub_matmul_bigk
+
+    def spy(*args):
+        calls.append(args[-1])
+        return inner(*args)
+
+    monkeypatch.setattr(tgemm, "sub_matmul_bigk", spy)
+    F, perm = tsingle.lu_factor(A, v=v, precision=precision)
+    steps = -(-n // v)
+    assert calls == ([precision] * (2 * (steps - 1) - 1) if routed else [])
+    monkeypatch.setattr(tsingle, "sub_dot",
+                        lambda R, X, Y, p: R - tsingle.schur_dot(X, Y, p))
+    F0, perm0 = tsingle.lu_factor(A, v=v, precision=precision)
+    assert torch.equal(F, F0) and torch.equal(perm, perm0)
 
 
 @pytest.mark.parametrize("compaction", ["split", "swap"])
