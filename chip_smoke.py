@@ -57,6 +57,18 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. flat path: the same with scheme='flat';
  11. Cholesky path: cholesky(A, v=1536, precision='high') at N=32768;
  12. swap and split paths: crout with compaction='swap' and 'split'.
+ 13. dist: the 2.5D rank programs, 8 ranks of one gloo world on this one
+     card as a (2, 2, 2) grid (kernels built in this process first, so
+     the ranks only load them): plu at the auto variant ('windowed'),
+     tournament pivoting, and pcholesky at the auto variant ('crout'), in
+     'high' at N = 16384, v = 512, each rank's launch counts reset just
+     before each and read just after, K1's per route and K3's held on
+     every rank to the counts derived from the step loops
+     (`dist_k1_blocks`); both residuals on grid rank 0; then 'full'
+     pivoting at N = 2048, v = 128, 'highest', whose pivots must equal the
+     single-device lu_factor's. The walls are of 8 processes sharing one
+     card with gloo moving every collective through host memory: not a
+     multi-GPU time.
 
 Each kernel phase times the kernel, its plain version and, where one
 PyTorch call computes the same function, that call (the kernel's
@@ -186,10 +198,12 @@ MASKED_LANE = 500          # masked in the ragged shape
 FORCED_TILES = ((128, 1536, 128), (128, 1536, 1408), (64, 1536, 64),
                 (64, 1536, 1472))
 # K3 spans (m, ncols, k, c0, c1): the flat path's first trailing update,
-# the one at step k = 15360, and a ragged one
+# the one at step k = 15360, a ragged one, and the distributed LU's first
+# (a rank's [Ml, Nl] = [8192, 8192] block, l = v / Pz = 256)
 K3_SHAPES = (("first", 32768, 32768, 1536, 1536, 32768),
              ("mid", 17408, 32768, 1536, 16896, 32768),
-             ("ragged", 1000, 1040, 200, 37, 1000))
+             ("ragged", 1000, 1040, 200, 37, 1000),
+             ("dist", 8192, 8192, 256, 0, 8192))
 # 'high'/'bf16': kernel and plain version take the same bf16 operand
 # values and differ only in fp32 summation order
 K3_TOL = 1e-5              # of max(|A| @ |B|)
@@ -216,6 +230,20 @@ ROW_MOVES = (("scatter", V), ("gather", V), ("gather", N - V))
 # the split path's narrow panel gather T[origin, k:k+w] at k = V: rows of
 # V f32 (6 KB) with row stride N
 PANEL_SLICE = (V, 2 * V)
+# the distributed phase: plu and pcholesky on a (2, 2, 2) grid of 8 gloo
+# ranks on this one card, at the reference configuration's N (BASELINE.md),
+# v = 512 (l = v / Pz = 256: K3 runs every step), and the 'full'-pivot
+# parity check at (N, v) = DIST_CHECK
+DIST_GRID = (2, 2, 2)
+DIST_N, DIST_V = 16384, 512
+DIST_WINDOWS = 8              # lu_25d's default window count
+DIST_CHECK = (2048, 128)
+DIST_TIMEOUT = 600.0
+# K1 at the distributed paths' shapes (w, m, mode, j0): the local round
+# over a rank's Ml = N / Px rows, the merge round over 2v candidates, and
+# the forced [v, v] tiles (the winners' refactor, Cholesky's potrf_tile)
+DIST_K1 = ((64, DIST_N // DIST_GRID[0], "unforced", 0),
+           (64, 2 * DIST_V, "unforced", 0), (64, DIST_V, "forced", 64))
 
 
 def fail(msg: str):
@@ -334,6 +362,8 @@ def phase_k1():
                w if mode == "forced" else 0, 8000 + w + past + len(mode))
               for w in (128, 64) for past in (0, 128)
               for mode in ("unforced", "forced", "finish")]
+    cases += [(w, m, mode, j0, 9000 + i)
+              for i, (w, m, mode, j0) in enumerate(DIST_K1)]
     counters = ("LAUNCHES", "LAUNCHES_CLUSTER", "LAUNCHES_GRID",
                 "LAUNCHES_TILE")
     rows = []
@@ -1102,6 +1132,185 @@ def phase_cholesky_path(smi: str):
     return counts
 
 
+def dist_k1_blocks(path: str, n: int = DIST_N, v: int = DIST_V):
+    """(w, m, forced) of every K1 block ONE rank of the DIST_GRID grid
+    launches in one `path` run, from the rank programs' step loops (every
+    rank launches the same blocks): the panel's 64-wide blocks
+    (ops/panel._BLOCK). lu_25d (tournament, 'windowed'): per step, the
+    local round over the rank's mr working rows, the one merge round
+    (Px = 2) over the 2v candidates, and the forced refactor of the v
+    winners; mr shrinks to the row frontier at each window start.
+    cholesky_25d ('crout'): per step, the forced [v, v] diagonal tile."""
+    from conflux_tpu_torch.dispatch import segment_bounds
+    from conflux_tpu_torch.lu.p25d import _row_frontier
+
+    Px = DIST_GRID[0]
+    Nt = n // v
+    per = v // 64
+    if path == "cholesky_25d":
+        return [(64, v, True)] * (Nt * per)
+    blocks = []
+    mr = n // Px
+    starts = {lo for lo, _ in segment_bounds(Nt, DIST_WINDOWS) if lo > 0}
+    for k in range(Nt):
+        if k in starts:
+            mr = min(mr, _row_frontier(n, k, v, Px))
+        blocks += ([(64, mr, False)] * per + [(64, 2 * v, False)] * per
+                   + [(64, v, True)] * per)
+    return blocks
+
+
+def _dist_want(path: str, route, n: int, v: int) -> dict:
+    """Each counter's launches on one rank in one `path` run: K1's in all
+    and per route (route(w, m, forced) names a block's route on this
+    card), K3's one per LU step where l = v / Pz is a multiple of 128
+    (`_trailing_sub`'s condition; 'high'), every other kernel's none."""
+    want = {name: 0 for name in _counters()}
+    blocks = dist_k1_blocks(path, n, v)
+    want["rank1_panel"] = len(blocks)
+    taken = [route(*b) for b in blocks]
+    for r in K1_ROUTES:
+        want[f"rank1_panel {r}"] = taken.count(r)
+    if path == "lu_25d" and (v // DIST_GRID[2]) % 128 == 0:
+        want["schur_update"] = want["schur_update wgmma"] = n // v
+    return want
+
+
+def _dist_rank(n: int, v: int, check):
+    """One rank of the dist phase (runs in its own process): plu and
+    pcholesky at the auto variant, 'high', on the DIST_GRID grid, each
+    with every launch counter set to 0 just before and read just after;
+    grid rank 0 checks both factors and the 'full'-pivot parity run."""
+    import torch
+    import torch.distributed as dist
+
+    from conflux_tpu_torch.cholesky.p25d import pcholesky
+    from conflux_tpu_torch.grid import make_grid
+    from conflux_tpu_torch.lu.p25d import plu
+    from conflux_tpu_torch.lu.single import lu_factor
+    from conflux_tpu_torch.validation import (
+        cholesky_residual_blocked,
+        lu_residual_blocked,
+    )
+
+    grid = make_grid(DIST_GRID, device="cuda")
+    root = grid.rank == 0
+    g = torch.Generator(device="cuda").manual_seed(42)
+    A = 5.0 + torch.rand(n, n, generator=g, device="cuda")   # the LU input
+    g = torch.Generator(device="cuda").manual_seed(43)
+    S = torch.rand(n, n, generator=g, device="cuda")         # Cholesky's
+    S = S + S.T
+    S.mul_(0.5)
+    S.diagonal().add_(float(n))
+    out = {"rank": grid.rank, "device": str(grid.device)}
+    for path in ("lu_25d", "cholesky_25d"):
+        torch.cuda.synchronize()
+        dist.barrier()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if path == "lu_25d":
+            F, perm = plu(A, grid, v, "tournament", "high")
+        else:
+            F, perm = pcholesky(S, grid, v, "high"), None
+        torch.cuda.synchronize()
+        entry = {"ms": (time.perf_counter() - t0) * 1e3, "counts": _counts()}
+        if root:
+            entry["on_card"] = F.is_cuda
+            if perm is None:
+                entry["residual"] = cholesky_residual_blocked(S, F)
+            else:
+                entry["on_card"] &= perm.is_cuda
+                entry["permutation"] = torch.equal(
+                    torch.sort(perm).values, torch.arange(n, device="cuda"))
+                entry["residual"] = lu_residual_blocked(A, F, perm)
+        out[path] = entry
+        del F, perm
+    del A, S
+    torch.cuda.empty_cache()
+    # 'full' pivoting is exact partial pivoting: its pivots must be the
+    # single-device port's
+    n2, v2 = check
+    g = torch.Generator(device="cuda").manual_seed(44)
+    A2 = torch.randn(n2, n2, generator=g, device="cuda")
+    F2, p2 = plu(A2, grid, v2, "full", "highest")
+    if root:
+        Fs, ps = lu_factor(A2, v=v2, precision="highest")
+        out["full"] = {
+            "equal": torch.equal(p2, ps),
+            "agree": float((p2 == ps).double().mean()),
+            "max_rel_diff": float((F2 - Fs).abs().max() / Fs.abs().max()),
+            "residual": lu_residual_blocked(A2, F2, p2)}
+    out["jax"] = "jax" in sys.modules
+    return out
+
+
+def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
+               check=DIST_CHECK):
+    """The distributed paths: DIST_GRID's 8 ranks as 8 processes of one
+    gloo world on this one card (kernels built already, so the ranks only
+    load them), each running plu and pcholesky; every rank's launches
+    held to the step loops' counts. Returns each path's launches summed
+    over the ranks."""
+    from conflux_tpu_torch.launch import run_ranks
+    from conflux_tpu_torch.ops import cuda_panel
+
+    import torch
+
+    # the earlier phases' cached blocks go back to the card for the ranks
+    torch.cuda.empty_cache()
+    P = DIST_GRID[0] * DIST_GRID[1] * DIST_GRID[2]
+    t0 = time.perf_counter()
+    ranks = run_ranks(P, _dist_rank, n, v, check, backend="gloo",
+                      device="cuda", timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    grid = "x".join(map(str, DIST_GRID))
+    sums = {}
+    for path, how in (("lu_25d", "plu tournament, auto variant 'windowed'"),
+                      ("cholesky_25d", "pcholesky, auto variant 'crout'")):
+        want = _dist_want(path, cuda_panel.route, n, v)
+        for r in ranks:
+            bad = {k: (r[path]["counts"][k], w) for k, w in want.items()
+                   if r[path]["counts"][k] != w}
+            if bad:
+                fail(f"dist {path} rank {r['rank']}: launches (got, "
+                     f"expected) {bad}")
+        root = ranks[0][path]
+        if not root["on_card"]:
+            fail(f"dist {path}: the result left the card")
+        if path == "lu_25d" and not root["permutation"]:
+            fail("dist lu_25d: perm is not a permutation")
+        if not root["residual"] <= RESIDUAL_GATE:
+            fail(f"dist {path}: residual {root['residual']} > "
+                 f"{RESIDUAL_GATE}")
+        ms = [r[path]["ms"] for r in ranks]
+        sums[path] = {k: sum(r[path]["counts"][k] for r in ranks)
+                      for k in want}
+        print(f"dist {path} {grid} N={n} v={v} 'high' ({how}), 8 ranks on "
+              "one card, gloo through the host: not a multi-GPU time, on "
+              f"{smi}: wall rank 0 {ms[0]:.1f} ms, max over ranks "
+              f"{max(ms):.1f} ms (distribute, factorization and the gather "
+              f"to rank 0), residual {root['residual']:.3e}, launches per "
+              f"rank {{K1: {want['rank1_panel']} (" + ", ".join(
+                  f"{r} {want['rank1_panel ' + r]}" for r in K1_ROUTES)
+              + f"), K3: {want['schur_update']}}} as derived from the step "
+              "loop on every rank")
+    full = ranks[0]["full"]
+    print(f"dist 'full' pivoting {grid} N={check[0]} v={check[1]} 'highest': "
+          f"pivots equal to the single-device lu_factor's {full['equal']} "
+          f"(agree {full['agree']:.4f}), max|F - F_single| / max|F_single| "
+          f"{full['max_rel_diff']:.3e}, residual {full['residual']:.3e}")
+    if not full["equal"]:
+        fail("dist 'full' pivots differ from the single-device port's")
+    if not full["residual"] <= RESIDUAL_GATE:
+        fail(f"dist 'full' residual {full['residual']}")
+    if any(r["jax"] for r in ranks):
+        fail("a rank imported jax")
+    devices = sorted({r["device"] for r in ranks})
+    print(f"dist phase: {P} ranks on {devices}, {wall:.1f} s in all "
+          "(spawn, process groups, both paths and the check)")
+    return sums
+
+
 def _pick(table, **want):
     return next(r for r in table if all(r[k] == v for k, v in want.items()))
 
@@ -1135,6 +1344,7 @@ def main() -> int:
                "cholesky": phase_cholesky_path(smi),
                "swap": phase_lu_path(smi, "swap"),
                "split": phase_lu_path(smi, "split")}
+    by_path.update(phase_dist(smi))
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in KERNELS}
     for name, n in launches.items():

@@ -15,6 +15,12 @@ block (`ops.cuda_panel`); K3, the fused trailing update, K2, the big-K
 R - A @ B, and K4, the plain GEMM (`ops.cuda_gemm`); K5 and K6, the row
 scatter and gather (`ops.cuda_scatter`). CPU tensors take their plain
 PyTorch versions.
+
+The 2.5D distributed LU (`lu.p25d`: `lu_25d`, `plu`) and Cholesky
+(`cholesky.p25d`: `cholesky_25d`, `pcholesky`) run one process per rank
+of a torch.distributed world (`launch.run_ranks`, or torchrun): `grid`
+places the rank in its (Px, Py, Pz) grid, `comm` gives it JAX's
+named-axis collectives, `layout` (un)distributes the block-cyclic matrix.
 """
 
 __version__ = "0.1.0"
@@ -33,6 +39,12 @@ def __getattr__(name):
         "cholesky_residual_blocked": "conflux_tpu_torch.validation",
         "lu_solve": "conflux_tpu_torch.solve",
         "cho_solve": "conflux_tpu_torch.solve",
+        "make_grid": "conflux_tpu_torch.grid",
+        "lu_25d": "conflux_tpu_torch.lu.p25d",
+        "plu": "conflux_tpu_torch.lu.p25d",
+        "cholesky_25d": "conflux_tpu_torch.cholesky.p25d",
+        "pcholesky": "conflux_tpu_torch.cholesky.p25d",
+        "run_ranks": "conflux_tpu_torch.launch",
     }
     if name in lazy:
         return getattr(importlib.import_module(lazy[name]), name)
@@ -41,4 +53,5 @@ def __getattr__(name):
 
 __all__ = ["ConfluxError", "ErrorCode", "lu_factor", "lu_residual",
            "lu_residual_blocked", "cholesky_residual_blocked",
-           "lu_solve", "cho_solve"]
+           "lu_solve", "cho_solve", "make_grid", "lu_25d", "plu",
+           "cholesky_25d", "pcholesky", "run_ranks"]

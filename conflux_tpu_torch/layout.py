@@ -1,0 +1,206 @@
+"""Block-cyclic layout algebra and the (un)distribution of a matrix.
+
+PyTorch counterpart of `conflux_tpu/layout.py`: the index maps
+(conflux_opt.cpp:19-98), the butterfly partner map and the `BlockCyclic`
+descriptor are copies. Storage convention, as in the JAX package: rank
+(pi, pj, pz) holds the local block G[pz, pi*Ml:(pi+1)*Ml, pj*Nl:(pj+1)*Nl]
+of the cyclic-permuted global array, [Ml, Nl] in row-major local tiles:
+local row li*v + r is global row (li*Px + pi)*v + r. Every entry of the
+matrix is a sum over the z layers; layer 0 carries the data at
+distribution and the other layers carry zeros (lu_params.hpp:149-155).
+Here each rank holds only its own block, as a tensor on its device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from conflux_tpu_torch.errors import ConfluxError, ErrorCode
+from conflux_tpu_torch.grid import Grid
+
+
+def l2g(p, l, stride):
+    """Local tile index -> global tile index (conflux_opt.cpp:19-21)."""
+    return l * stride + p
+
+
+def g2l(g, stride):
+    """Global tile index -> (owner, local tile index) (conflux_opt.cpp:23-27)."""
+    return g % stride, g // stride
+
+
+def g2l_row(grow, Px, v):
+    """Global row -> (owner pi, local row within the [Ml] no-tile local
+    frame), the row arithmetic of `g2lnoTile` (conflux_opt.cpp:74-98)."""
+    gt = grow // v
+    pown = gt % Px
+    lt = gt // Px
+    return pown, lt * v + grow % v
+
+
+def local_row_to_global(pi: int, Px: int, v: int, Ml: int,
+                        device=None) -> torch.Tensor:
+    """int64 global row index of each of the Ml local rows of device row
+    pi (also serves columns: local_row_to_global(pj, Py, v, Nl))."""
+    lr = torch.arange(Ml, device=device)
+    return ((lr // v) * Px + pi) * v + lr % v
+
+
+def local_tile_to_global(p: int, P: int, v: int, L: int,
+                         device=None) -> torch.Tensor:
+    """int64 global TILE index of each of the L local rows (or columns)
+    of device p."""
+    return (torch.arange(L, device=device) // v) * P + p
+
+
+def flipbit(n, k):
+    """XOR bit k — butterfly partner map (conflux_opt.cpp:55-57)."""
+    return n ^ (1 << k)
+
+
+def butterfly_pair(pi: int, r: int, Px: int) -> int:
+    """Partner of rank pi in butterfly round r for arbitrary Px
+    (`conflux::butterfly_pair`, conflux_opt.cpp:59-72): non-power-of-two
+    ranks fold the out-of-range partner back into the grid."""
+    src = flipbit(pi, r)
+    if src >= Px:
+        if r == 0:
+            src = pi
+        else:
+            src = flipbit(src, r - 1)
+            if src >= Px:
+                src = Px - 1
+    return src
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockCyclic:
+    """Block-cyclic descriptor (the `lu_params` geometry fields,
+    lu_params.hpp:67-82)."""
+
+    M: int          # padded global rows
+    N: int          # padded global cols
+    v: int          # tile size
+    grid: Grid
+
+    @staticmethod
+    def create(M: int, N: int, v: int, grid: Grid) -> "BlockCyclic":
+        """Pad M, N up to v*Px resp. v*Py multiples (lu_params.hpp:67-71).
+        A square input stays square: both dims pad to the lcm of v*Px and
+        v*Py. A tall input keeps a spare padding row for every padding
+        column, so identity padding keeps it full column rank."""
+        if v <= 0:
+            raise ConfluxError(ErrorCode.INVALID_TILE,
+                               f"tile size v={v} must be positive")
+        if M == N:
+            step = math.lcm(v * grid.Px, v * grid.Py)
+            mp = np_ = step * (-(-N // step))
+        else:
+            mp = v * grid.Px * (-(-M // (v * grid.Px)))
+            np_ = v * grid.Py * (-(-N // (v * grid.Py)))
+            if M > N:
+                need = max(np_, M + (np_ - N))
+                mp = max(mp, v * grid.Px * (-(-need // (v * grid.Px))))
+        return BlockCyclic(mp, np_, v, grid)
+
+    @property
+    def Mt(self) -> int:
+        return self.M // self.v
+
+    @property
+    def Nt(self) -> int:
+        return self.N // self.v
+
+    @property
+    def Mtl(self) -> int:  # local tile rows (tA11x in the reference)
+        return self.Mt // self.grid.Px
+
+    @property
+    def Ntl(self) -> int:  # local tile cols (tA11y)
+        return self.Nt // self.grid.Py
+
+    @property
+    def Ml(self) -> int:
+        return self.Mtl * self.v
+
+    @property
+    def Nl(self) -> int:
+        return self.Ntl * self.v
+
+    @property
+    def nlayr(self) -> int:
+        """Per-z-layer slice of the update rank: ceil(v/Pz) (lu_params.hpp:73)."""
+        return -(-self.v // self.grid.Pz)
+
+    def global_shape(self) -> Tuple[int, int, int]:
+        return (self.grid.Pz, self.grid.Px * self.Ml, self.grid.Py * self.Nl)
+
+
+def pad_like(A, desc: BlockCyclic):
+    """The dense padded matrix `distribute(A, desc)` factorizes: A in the
+    top-left corner, ones on the trailing diagonal, zeros elsewhere (numpy
+    in, numpy out; a tensor in, a tensor on its device out). Use it as the
+    ground truth of a padded LU: pivoting may interleave padding rows, so
+    its factors cannot be cropped back to A's shape."""
+    if tuple(A.shape) == (desc.M, desc.N):
+        return A
+    m, n = A.shape
+    if m > desc.M or n > desc.N:
+        raise ConfluxError(ErrorCode.LAYOUT_MISMATCH,
+                           f"matrix {tuple(A.shape)} larger than descriptor "
+                           f"{(desc.M, desc.N)}")
+    k = min(desc.M - m, desc.N - n)
+    if isinstance(A, torch.Tensor):
+        out = torch.zeros((desc.M, desc.N), dtype=A.dtype, device=A.device)
+        idx = torch.arange(k, device=A.device)
+    else:
+        out = np.zeros((desc.M, desc.N), dtype=np.asarray(A).dtype)
+        idx = np.arange(k)
+    out[:m, :n] = A
+    out[m + idx, n + idx] = 1
+    return out
+
+
+def distribute(A, desc: BlockCyclic):
+    """This rank's [Ml, Nl] block of a dense [M, N] matrix (numpy or a
+    tensor, the whole matrix on every rank; padded with `pad_like` when
+    smaller than the descriptor), as a tensor on the grid's device: layer
+    0 carries the data, the other z layers zeros. None on an idle rank."""
+    g = desc.grid
+    if g.idle:
+        return None
+    A = pad_like(A, desc)
+    if not isinstance(A, torch.Tensor):
+        A = torch.from_numpy(np.ascontiguousarray(A))
+    if g.pz:
+        return torch.zeros((desc.Ml, desc.Nl), dtype=A.dtype,
+                           device=g.device)
+    v = desc.v
+    A6 = A.reshape(desc.Mtl, g.Px, v, desc.Ntl, g.Py, v)
+    blk = A6[:, g.pi, :, :, g.pj, :].reshape(desc.Ml, desc.Nl)
+    return blk.to(g.device).contiguous()
+
+
+def undistribute(G: torch.Tensor, desc: BlockCyclic, root: int = 0):
+    """Inverse of `distribute`: every rank's block is gathered to grid rank
+    `root`, which sums the z layers and undoes the cyclic permutation.
+    Returns the dense [M, N] tensor on `root`, None on the other ranks.
+    Every rank of the grid must call it."""
+    g = desc.grid
+    if g.idle:
+        return None
+    if g.P == 1:
+        return G.clone()
+    blocks = g.comm.gather(G, root)
+    if blocks is None:
+        return None
+    v = desc.v
+    B = blocks.reshape(g.Px, g.Py, g.Pz, desc.Mtl, v, desc.Ntl, v).sum(dim=2)
+    # B[pi, pj, li, r, lj, c] is global entry ((li*Px + pi)*v + r,
+    # (lj*Py + pj)*v + c)
+    return B.permute(2, 0, 3, 4, 1, 5).reshape(desc.M, desc.N).contiguous()

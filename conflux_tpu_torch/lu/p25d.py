@@ -1,0 +1,510 @@
+"""2.5D distributed LU with tournament pivoting (CONFLUX), one process per
+rank.
+
+PyTorch counterpart of `conflux_tpu/lu/p25d.py`: the right-looking rank
+program `conflux::LU_rep` (conflux_opt.hpp:343-1830) on this rank's
+[Ml, Nl] block of the z-partial layout (layout.py), with data moving only
+through the named-axis collectives of `comm.Comm`. Per step k:
+
+  step 0  the step's panel column is reduced over 'z' only now (the lazy
+          2.5D reduction, conflux_opt.hpp:618-648);
+  step 1  the v pivot rows are chosen over 'x': each rank picks v
+          candidates from its rows by masked partial pivoting
+          (`ops/panel`, K1 on the card at [64, m] blocks of its [mr, v]
+          column), then a log-round butterfly of `ppermute`s merges them
+          (any Px: `butterfly_pair`'s receive map with masked-psum
+          broadcasts for multi-destination sources, conflux_opt.hpp:
+          220-336), or one all_gather merge ('gather'); 'full' gathers the
+          whole column (exact partial pivoting), 'none' takes the diagonal
+          tile (EmptyPivot). The owner column's winners and merged factor
+          lu00 are psum-broadcast over 'y';
+  steps 2+3  one masked psum over ('x', 'z') delivers the v pivot rows,
+          full width, to every rank; the owner row writes them into F;
+  steps 4+5  the A10 and A01 TRSMs against U00 and L00;
+  step 6  the split-K trailing update: layer pz subtracts its
+          l = ceil(v/Pz)-wide slice of L10 @ U01, broadcast over 'y'
+          (`_trailing_sub`, K3 on the card in 'high' and 'bf16').
+
+Dead rows stay in place, masked by `active`, until a row rebalance
+(`_rebalance_rows`) moves the live ones evenly over 'x' into a smaller
+block; F collects the factor rows in pivot order, so the result is the
+reference's layout: merged L\\U of P·A in block-cyclic order plus the
+global pivot vector (conflux_opt.hpp:497-503).
+
+Variants. The JAX package has 'fori' and 'windowed' versions of the
+right-looking program to bound XLA's trace; eager PyTorch has none, so
+every name here runs the one program, whose step k slices its exact live
+column window, and the names set its row rebalance and update split:
+'fori' never rebalances (the JAX fori program's row layout); 'unrolled'
+rebalances every `rowpart` steps (default Px); 'lookahead' is 'unrolled'
+with each trailing update split so the next panel column is updated and
+reduced first; 'windowed' rebalances at each segment start of
+`dispatch.segment_bounds(Nt, windows)`. The left-looking 'crout' program
+is not ported yet (ROADMAP item 9).
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+from conflux_tpu_torch.dispatch import normalize_variant, segment_bounds
+from conflux_tpu_torch.errors import ConfluxError, ErrorCode
+from conflux_tpu_torch.layout import (
+    BlockCyclic,
+    butterfly_pair,
+    distribute,
+    local_row_to_global,
+    local_tile_to_global,
+    undistribute,
+)
+from conflux_tpu_torch.ops.gemm import schur_update
+from conflux_tpu_torch.ops.panel import _lu_select_loop_t, lu_nopivot, \
+    select_pivots
+from conflux_tpu_torch.ops.tri import (
+    schur_dot,
+    trsm_left_lower_unit,
+    trsm_right_upper,
+    unit_lower,
+    upper,
+)
+from conflux_tpu_torch.precision import ieee_fp32
+
+PIVOTINGS = ("tournament", "gather", "full", "none")
+
+
+def _compute_dtype(dt):
+    """Panel-math dtype: f32 for bf16 storage, otherwise the storage dtype
+    (the JAX package's contract; the port takes f32 only so far)."""
+    return torch.float32 if dt == torch.bfloat16 else dt
+
+
+def _select_only(panel, active, v):
+    """(piv, ok) of the masked partial-pivoting selection, without the
+    merged factor of the winners (`select_pivots` less its forced
+    refactor): the tournament needs the factor only from its last
+    round."""
+    piv, ok, _ = _lu_select_loop_t(panel, active, v, forced=False)
+    return piv, ok
+
+
+def _round_exchange(comm, pi: int, arrays, r: int, Px: int):
+    """One butterfly round of candidate exchange over 'x' for any Px:
+    rank d receives from butterfly_pair(d, r, Px). Pairs whose source
+    sends to one destination go in one ppermute; each source with several
+    destinations is one masked psum broadcast. Returns (received arrays,
+    src_of [Px])."""
+    src_of = [butterfly_pair(d, r, Px) for d in range(Px)]
+    pairs = [(s, d) for d, s in enumerate(src_of) if s != d]
+    cnt = Counter(s for s, _ in pairs)
+    bij = [(s, d) for s, d in pairs if cnt[s] == 1]
+    multi = sorted({s for s, _ in pairs if cnt[s] > 1})
+
+    recvs = list(arrays)  # self-receive default
+    if bij:
+        moved = [comm.ppermute(a, "x", bij) for a in arrays]
+        if pi in [d for _, d in bij]:
+            recvs = moved
+    for s in multi:
+        bcast = [comm.psum(a if pi == s else torch.zeros_like(a), "x")
+                 for a in arrays]
+        if pi in [d for ss, d in pairs if ss == s]:
+            recvs = bcast
+    return tuple(recvs), src_of
+
+
+def _merge_round(vals_a, idx_a, vals_b, idx_b, v, last: bool):
+    """One tournament merge: the v best rows among 2v candidates, which
+    keep their original panel values. Only the last round's merged factor
+    is used, so only it is formed."""
+    vals = torch.cat([vals_a, vals_b])
+    idx = torch.cat([idx_a, idx_b])
+    if last:
+        piv, ok, lu = select_pivots(vals, idx >= 0, v)
+    else:
+        (piv, ok), lu = _select_only(vals, idx >= 0, v), None
+    win_vals = torch.where(ok[:, None], vals[piv], 0.0)
+    win_idx = torch.where(ok, idx[piv], -1)
+    return win_vals, win_idx, lu
+
+
+def _tournament(comm, colk, active, gri, v: int, Px: int, mode: str):
+    """The v pivot rows of the step panel, chosen across 'x'. colk [mr, v]
+    the reduced panel column, active [mr] the live rows, gri [mr] their
+    global rows. Returns (win_idx [v] global rows, lu00 [v, v] merged
+    factors of the winners in pivot order), the same on every rank of an
+    'x' row (merges take the lower origin first)."""
+    if Px == 1:
+        piv, ok, lu = select_pivots(colk, active, v)
+        return torch.where(ok, gri[piv], -1), lu
+    pi = comm.coord("x")
+    piv, ok = _select_only(colk, active, v)
+    cand_vals = torch.where(ok[:, None], colk[piv], 0.0)
+    cand_idx = torch.where(ok, gri[piv], -1)
+
+    if mode == "butterfly":
+        rounds = (Px - 1).bit_length()
+        lu00 = None
+        for r in range(rounds):
+            (recv_vals, recv_idx), src_of = _round_exchange(
+                comm, pi, (cand_vals, cand_idx), r, Px)
+            src = src_of[pi]
+            if src == pi:
+                # a self-receive round (non-power-of-two Px) merges an
+                # empty list, not a duplicate
+                recv_vals = torch.zeros_like(recv_vals)
+                recv_idx = torch.full_like(recv_idx, -1)
+            if src > pi:
+                a_vals, a_idx, b_vals, b_idx = (cand_vals, cand_idx,
+                                                recv_vals, recv_idx)
+            else:
+                a_vals, a_idx, b_vals, b_idx = (recv_vals, recv_idx,
+                                                cand_vals, cand_idx)
+            cand_vals, cand_idx, lu00 = _merge_round(
+                a_vals, a_idx, b_vals, b_idx, v, last=r == rounds - 1)
+        return cand_idx, lu00
+
+    # 'gather': one all_gather merge of every rank's candidates
+    all_vals = comm.all_gather(cand_vals, "x").reshape(Px * v, v)
+    all_idx = comm.all_gather(cand_idx, "x").reshape(Px * v)
+    piv2, ok2, lu00 = select_pivots(all_vals, all_idx >= 0, v)
+    return torch.where(ok2, all_idx[piv2], -1), lu00
+
+
+def _full_pivot(comm, colk, active, gri, v: int, Px: int):
+    """Exact partial pivoting: the whole panel column is gathered over 'x'
+    and ordered by global row, so the pivots are the single-device blocked
+    LU's for any row layout."""
+    mr = colk.shape[0]
+    allc = comm.all_gather(colk, "x").reshape(Px * mr, v)
+    alla = comm.all_gather(active.to(torch.uint8), "x").reshape(Px * mr) > 0
+    allg = comm.all_gather(gri, "x").reshape(Px * mr)
+    big = torch.iinfo(allg.dtype).max
+    order = torch.argsort(torch.where(allg >= 0, allg, big), stable=True)
+    piv, ok, lu00 = select_pivots(allc[order], alla[order], v)
+    return torch.where(ok, allg[order][piv], -1), lu00
+
+
+def _find_local_rows(gri, win_idx):
+    """The winner rows among this rank's rows, by global row: (mine [v]
+    bool, lr [v] local rows, 0 where absent). Valid for any row layout."""
+    eq = gri[:, None] == win_idx[None, :]                  # [mr, v]
+    mine = eq.any(dim=0) & (win_idx >= 0)
+    lr = eq.to(torch.int32).argmax(dim=0)
+    return mine, lr
+
+
+def _live_rank(comm, active, gri, Mg: int):
+    """(act_g [Mg], rank_g [Mg]): the live mask by global row, the same on
+    every rank (a 1-D count scatter by global row and a psum over 'x'),
+    and each live row's rank among the live rows in ascending order."""
+    g = torch.where(gri >= 0, gri, Mg)
+    cnt = torch.zeros(Mg + 1, dtype=torch.int32, device=gri.device)
+    cnt.index_add_(0, g, active.to(torch.int32))
+    act_g = comm.psum(cnt[:Mg], "x") > 0
+    return act_g, torch.cumsum(act_g.to(torch.int64), 0) - 1, g
+
+
+def _rebalance_rows(comm, A, active, gri, Mg: int, Mlp: int, Px: int,
+                    chunk: int = 4096):
+    """Shrink the working rows from mr to Mlp by moving the globally live
+    rows (ascending global row) evenly over 'x': the distributed form of
+    the reference's shrinking working set (first_non_pivot_row /
+    push_pivots_up, conflux_opt.hpp:176-218). Each rank places its live
+    rows at their live-rank slot of a [Px*Mlp, chunk] contribution (zeros
+    elsewhere), and one psum_scatter over 'x' per column chunk hands rank
+    pi slots [pi*Mlp, (pi+1)*Mlp). z layers move their own partials.
+    Returns (A' [Mlp, Nl], active' [Mlp], gri' [Mlp]); pad slots carry
+    gri = -1 and are not active."""
+    mr, Nl = A.shape
+    T = Px * Mlp
+    _, rank_g, g = _live_rank(comm, active, gri, Mg)
+    slot = torch.where(active, rank_g[g.clamp(0, Mg - 1)], T)
+    # the slot map is injective on live rows; slot T collects the others
+    inv = torch.zeros(T + 1, dtype=torch.int64, device=A.device)
+    inv[slot] = torch.arange(mr, device=A.device)
+    has = torch.zeros(T + 1, dtype=torch.bool, device=A.device)
+    has[slot] = True
+    inv, has = inv[:T], has[:T]
+    if Px == 1:
+        return (torch.where(has[:, None], A[inv], 0.0), has,
+                torch.where(has, gri[inv], -1))
+    g2 = comm.psum_scatter(torch.where(has, gri[inv] + 1, 0), "x") - 1
+    cols = [comm.psum_scatter(
+                torch.where(has[:, None], A[inv, c0:min(c0 + chunk, Nl)],
+                            0.0), "x")
+            for c0 in range(0, Nl, chunk)]
+    A2 = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+    return A2, g2 >= 0, g2
+
+
+def _row_frontier(Mg: int, steps_done: int, v: int, Px: int) -> int:
+    """Working-row height once steps_done panels are chosen: ceil(live/Px)
+    rounded up to 8 rows, floored at v (the local round draws v
+    candidates from the block)."""
+    live = Mg - steps_done * v
+    return max(-(-v // 8) * 8, -(-live // Px // 8) * 8)
+
+
+def _tall_tail(desc: BlockCyclic, comm, A, F, active, pivots, gri):
+    """Tall (M > N) epilogue: the M - N rows never chosen hold their
+    finished multiplier rows in A (layer 0); they go to the factor's tail
+    rows N..M-1 in ascending global-row order, and the pivot vector grows
+    to length M (LAPACK trapezoid semantics)."""
+    v, Px = desc.v, desc.grid.Px
+    pi, pz = desc.grid.pi, desc.grid.pz
+    Mg, Ng = desc.M, desc.N
+    tail = Mg - Ng
+    dev = A.device
+    act_g, rank_g, g = _live_rank(comm, active, gri, Mg)
+    tailpiv = torch.zeros(tail + 1, dtype=torch.int64, device=dev)
+    tailpiv[torch.where(act_g, rank_g, tail)] = torch.arange(Mg, device=dev)
+    pivots[Ng:] = tailpiv[:tail]
+    myrank = torch.where(active, rank_g[g.clamp(0, Mg - 1)], tail)
+    contrib = torch.zeros((tail + 1, A.shape[1]), dtype=A.dtype, device=dev)
+    if pz == 0:
+        contrib[myrank] = torch.where(active[:, None], A, 0.0)
+    rows = comm.psum(contrib[:tail], ("x", "z"))            # [tail, Nl]
+    gslot = Ng + torch.arange(tail, device=dev)
+    mine = (gslot // v) % Px == pi
+    if pz == 0:
+        lrow = (gslot // v) // Px * v + gslot % v
+        F[lrow[mine]] = rows[mine]
+    return F, pivots
+
+
+def _trailing_sub(A, Lk, Yk, c0: int, c1: int, precision: str, active):
+    """A[:, c0:c1] -= where(active, Lk @ Yk, 0) in place: the step-6
+    trailing update (conflux_opt.hpp:1626-1634). In 'high' and 'bf16',
+    when the span runs to A's last column and the update rank l is a
+    multiple of 128 (the JAX package's conditions, less its TPU-only
+    operand-size gate), K3 (`ops/gemm.schur_update`) fuses it, with the
+    row mask folded into Lk's rows; otherwise a product and a masked
+    subtraction."""
+    m, n = A.shape
+    l = Lk.shape[1]
+    if c1 == n and precision in ("high", "bf16") and l % 128 == 0:
+        schur_update(A, torch.where(active[:, None], Lk, 0.0), Yk, c0,
+                     precision)
+        return
+    upd = schur_dot(Lk, Yk, precision)
+    A[:, c0:c1] -= torch.where(active[:, None], upd, 0.0)
+
+
+def _rebalance_steps(variant: str, Nt: int, Px: int, rowpart, windows):
+    """The steps after which the program rebalances its rows."""
+    if variant in ("unrolled", "lookahead"):
+        rp = Px if rowpart is None else rowpart
+        return {k for k in range(Nt - 1) if rp and (k + 1) % rp == 0}
+    if variant == "windowed" and (rowpart is None or rowpart):
+        return {lo - 1 for lo, _ in segment_bounds(Nt, windows) if lo > 0}
+    return set()
+
+
+def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
+                  G: torch.Tensor, rebalance_after=(),
+                  lookahead: bool = False):
+    """The right-looking rank program on this rank's block G (not
+    modified). Returns (F [Ml, Nl], this rank's block of the merged
+    factor in pivot order, and pivots [M], the same on every rank)."""
+    g = desc.grid
+    comm = g.comm
+    v, Px, Py, Pz = desc.v, g.Px, g.Py, g.Pz
+    Nl, Nt = desc.Nl, desc.Nt
+    l = desc.nlayr         # per-layer update rank ceil(v/Pz) (lu_params.hpp:73)
+    kpad = Pz * l - v      # zero pad so the last layer's slice is in bounds
+    pi, pj, pz = g.pi, g.pj, g.pz
+    dev = G.device
+
+    gri = local_row_to_global(pi, Px, v, desc.Ml, dev)   # global row of each row
+    gt_col = local_tile_to_global(pj, Py, v, Nl, dev)    # global tile of each col
+    A = G.to(_compute_dtype(G.dtype), copy=True)
+    F = torch.zeros_like(A)
+    active = torch.ones(desc.Ml, dtype=torch.bool, device=dev)
+    pivots = torch.zeros(desc.M, dtype=torch.int64, device=dev)
+
+    colnext = comm.psum(A[:, :v], "z") if lookahead else None
+    for k in range(Nt):
+        mr = A.shape[0]         # working height (shrinks at a rebalance)
+        c0 = (k // Py) * v      # frozen-column frontier
+        r0f = (k // Px) * v     # output-block row offset
+        own_y = pj == k % Py
+        own_x = pi == k % Px
+
+        # -- step 0: lazy z-reduction of the panel column --------------------
+        colk = colnext if lookahead else comm.psum(A[:, c0:c0 + v], "z")
+
+        # -- step 1: pivot selection over 'x' ---------------------------------
+        if pivoting in ("tournament", "gather"):
+            win_idx, lu00 = _tournament(
+                comm, colk, active, gri, v, Px,
+                "butterfly" if pivoting == "tournament" else "gather")
+        elif pivoting == "full":
+            win_idx, lu00 = _full_pivot(comm, colk, active, gri, v, Px)
+        else:
+            # round-robin: the diagonal-tile rows (EmptyPivot,
+            # python/pivoting.py:17-76), located by global row
+            win_idx = k * v + torch.arange(v, device=dev)
+            mine_n, dlr = _find_local_rows(gri, win_idx)
+            dcontrib = torch.where(mine_n[:, None], colk[dlr], 0.0)
+            a00 = comm.psum(dcontrib if own_y else torch.zeros_like(dcontrib),
+                            ("x", "y"))
+            lu00 = lu_nopivot(a00)
+        if pivoting != "none":
+            # selection ran on owner-column data: broadcast over 'y'
+            # (gpivots bcast, conflux_opt.hpp:863-872)
+            win_idx = comm.psum(win_idx if own_y
+                                else torch.zeros_like(win_idx), "y")
+            lu00 = comm.psum(lu00 if own_y else torch.zeros_like(lu00), "y")
+
+        pivots[k * v:(k + 1) * v] = win_idx
+        mine, lr = _find_local_rows(gri, win_idx)
+        active &= ~(gri[:, None] == win_idx[None, :]).any(dim=1)
+
+        # -- steps 2+3: the v pivot rows, full width, on every rank ----------
+        # trailing columns are z-partials and frozen L columns live on layer
+        # 0, so one masked psum over ('x', 'z') gives the true rows
+        raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0), ("x", "z"))
+
+        # -- steps 4+5: TRSMs ---------------------------------------------------
+        L00 = unit_lower(lu00)
+        U00 = upper(lu00)
+        # an exactly-zero pivot (rank-deficient panel) is 1 in the solves,
+        # so the factors stay finite (LAPACK getrf's skip-scaling)
+        U00 = U00 + torch.diag((torch.diagonal(U00) == 0).to(U00.dtype))
+        Y = trsm_left_lower_unit(L00, raw[:, c0:], method="invert")
+        if own_x and pz == 0:
+            # the output block row: L columns keep their raw values, the
+            # panel tile is lu00, trailing columns U01 = Y
+            F[r0f:r0f + v, :c0] = raw[:, :c0]
+            F[r0f:r0f + v, c0:] = torch.where(gt_col[None, c0:] > k, Y,
+                                              raw[:, c0:])
+            if own_y:
+                F[r0f:r0f + v, c0:c0 + v] = lu00
+        L10 = trsm_right_upper(colk, U00, method="invert")
+        L10 = torch.where(active[:, None], L10, 0.0)
+        if own_y:
+            A[:, c0:c0 + v] = L10 if pz == 0 else 0.0
+
+        # -- step 6: split-K trailing update (layer pz takes an l slice) -----
+        # only that slice of L10 is broadcast over 'y' (the reference's
+        # per-layer Iscatterv on jk_comm, conflux_opt.hpp:1424-1434)
+        L10p = torch.nn.functional.pad(L10, (0, kpad)) if kpad else L10
+        Lk = comm.psum(L10p[:, pz * l:(pz + 1) * l] if own_y
+                       else L10.new_zeros((mr, l)), "y")           # [mr, l]
+        Ymask = torch.where(gt_col[None, c0:] > k, Y, 0.0)
+        if kpad:
+            Ymask = torch.nn.functional.pad(Ymask, (0, 0, 0, kpad))
+        Yk = Ymask[pz * l:(pz + 1) * l]                            # [l, Nl-c0]
+        if lookahead and k + 1 < Nt:
+            # the next step's panel column first (all its tournament
+            # needs), then the rest of the window with that slice zeroed
+            c1 = ((k + 1) // Py) * v
+            _trailing_sub(A, Lk, Yk[:, c1 - c0:c1 - c0 + v].contiguous(),
+                          c1, c1 + v, precision, active)
+            colnext = comm.psum(A[:, c1:c1 + v], "z")
+            Yk = Yk.clone()
+            Yk[:, c1 - c0:c1 - c0 + v] = 0.0
+        _trailing_sub(A, Lk, Yk, c0, Nl, precision, active)
+
+        # -- row frontier: shed the dead rows --------------------------------
+        if k in rebalance_after:
+            Mlp = _row_frontier(desc.M, k + 1, v, Px)
+            if Mlp < mr:
+                A, active, gri = _rebalance_rows(comm, A, active, gri,
+                                                 desc.M, Mlp, Px)
+                if lookahead:
+                    # colnext's rows moved with A; its column is already
+                    # updated, so one z-reduction refreshes it
+                    c1 = ((k + 1) // Py) * v
+                    colnext = comm.psum(A[:, c1:c1 + v], "z")
+
+    if desc.M > desc.N:
+        F, pivots = _tall_tail(desc, comm, A, F, active, pivots, gri)
+    return F, pivots
+
+
+def _check(G: torch.Tensor, desc: BlockCyclic, pivoting: str):
+    if desc.M < desc.N:
+        raise ConfluxError(ErrorCode.INVALID_SHAPE,
+                           "distributed LU requires M >= N (tall or square)")
+    if G.dtype != torch.float32:
+        raise ConfluxError(
+            ErrorCode.INVALID_TYPE,
+            f"{G.dtype}: the PyTorch port factors float32 only so far "
+            "(bf16 storage, f64 and complex are ROADMAP item 7)")
+    if pivoting not in PIVOTINGS:
+        raise ConfluxError(ErrorCode.INVALID_SHAPE,
+                           f"unknown pivoting {pivoting!r}; expected one of "
+                           f"{PIVOTINGS}")
+    if tuple(G.shape) != (desc.Ml, desc.Nl):
+        raise ConfluxError(ErrorCode.LAYOUT_MISMATCH,
+                           f"block {tuple(G.shape)} is not the descriptor's "
+                           f"{(desc.Ml, desc.Nl)}")
+
+
+@ieee_fp32()
+def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
+           precision: str = "highest", unroll=None, windows: int = 8,
+           rowpart=None):
+    """Distributed LU of this rank's [Ml, Nl] block G of the z-partial
+    layout (`layout.distribute` makes one). Returns (F, pivots): this
+    rank's block of the merged LU factors of P·A in the same layout (rows
+    in pivot order, layer 0; conflux_opt.hpp:1660-1696) and the global
+    pivot vector, pivots[s] = the original row at slot s (int64, the same
+    on every rank); (None, None) on an idle rank. Every rank of the grid
+    must call it.
+
+    pivoting: 'tournament' (butterfly CALU), 'gather' (single-merge
+    CALU), 'full' (exact partial pivoting) or 'none' (EmptyPivot).
+    precision: the trailing-update mode ('highest', 'high', 'bf16'); the
+    panel math and TRSMs stay IEEE fp32. unroll: None auto-selects
+    (dispatch.choose_variant), True/False force 'unrolled'/'fori', or a
+    variant name (module docstring); 'crout' raises until it is ported.
+    rowpart: the rebalance cadence of 'unrolled'/'lookahead' (None = Px,
+    0 = never); for 'windowed', None or any truthy value rebalances at
+    each window boundary and 0 disables. Rebalancing moves rows across
+    'x', which changes the tournament's candidate groups: CALU pivots
+    depend on the tree by construction; 'full' and 'none' do not.
+
+    A (1, 1, 1) grid with 'tournament', 'gather' or 'full' runs the
+    single-device `_getrf_crout` (every strategy is exact partial
+    pivoting there), whose F and perm have the same layout."""
+    if desc.grid.idle:
+        return None, None
+    _check(G, desc, pivoting)
+    variant = normalize_variant(unroll, desc, "lu")
+    if desc.grid.P == 1 and pivoting != "none":
+        from conflux_tpu_torch.lu.single import _getrf_crout
+
+        return _getrf_crout(G, desc.v, precision)
+    if variant == "crout":
+        raise ConfluxError(
+            ErrorCode.INVALID_GRID,
+            "the left-looking LU rank program ('crout') is not ported to "
+            "PyTorch yet (ROADMAP item 9); use 'windowed' or 'unrolled'")
+    return _local_lu_25d(
+        desc, pivoting, precision, G,
+        rebalance_after=_rebalance_steps(variant, desc.Nt, desc.grid.Px,
+                                         rowpart, windows),
+        lookahead=variant == "lookahead")
+
+
+@ieee_fp32()
+def plu(A, grid, v: int = 128, pivoting: str = "tournament",
+        precision: str = "highest", unroll=None, root: int = 0):
+    """Dense [M, N] matrix (numpy or a tensor, on every rank) -> (F, perm):
+    the dense merged LU of P·A on grid rank `root` (None elsewhere) and
+    the pivot vector on every rank. The distributed analog of `LU_rep` and
+    the miniapp's validation assembly (conflux_miniapp.cpp:349-507).
+
+    When the shape is not a multiple of the grid tiling, F and perm
+    describe the identity-PADDED problem (`layout.pad_like(A, desc)`), as
+    in the reference (lu_params.hpp:67-71)."""
+    desc = BlockCyclic.create(A.shape[0], A.shape[1], v, grid)
+    F, pivots = lu_25d(distribute(A, desc), desc, pivoting, precision,
+                       unroll)
+    if desc.grid.P == 1 or F is None:
+        return F, pivots
+    return undistribute(F, desc, root), pivots

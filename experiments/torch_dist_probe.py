@@ -1,0 +1,193 @@
+"""The distributed layer on one card: which collectives a gloo world takes
+on CUDA tensors, and where the rank programs' time goes.
+
+    python3 -m experiments.torch_dist_probe --ops
+    python3 -m experiments.torch_dist_probe --breakdown [--n 16384 --v 512]
+
+--ops tries each collective that `comm.Comm` issues on a CUDA tensor
+(`probe_ops("cpu")` does the same on CPU tensors), each in a gloo world
+of two ranks of its own (`launch.run_ranks`: an op gloo does not take can
+abort the process), and prints what each one did: the evidence for which
+collectives `comm.Comm` stages through host memory on a gloo world.
+
+--breakdown runs chip_smoke's distributed paths (plu and pcholesky at the
+auto variant, 'high', on a (2, 2, 2) grid of 8 gloo ranks on the card,
+chip_smoke's inputs) with every `Comm` collective timed on each rank, the
+card synchronised before and after it: per rank, the wall of each path
+and the seconds and calls of each collective; the rest of the wall is
+the rank's own work (its kernels, its host code, and waiting for the card
+that 8 processes share). --device cpu rehearses it on CPU ranks.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+
+OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+       "reduce_scatter_tensor", "isend/irecv", "gather")
+COLLECTIVES = ("psum", "all_gather", "ppermute", "psum_scatter", "gather")
+
+
+def _op_rank(op: str, where: str):
+    """One collective `op` on a tensor on `where` in a world of two ranks;
+    what rank 0 received, as a string."""
+    import torch
+    import torch.distributed as dist
+
+    r = dist.get_rank()
+    x = torch.full((4,), float(r + 1), device=where)
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        got = x[0]
+    elif op == "broadcast":
+        dist.broadcast(x, 0)
+        got = x[0]
+    elif op == "all_gather":
+        parts = [torch.empty(4, device=where) for _ in range(2)]
+        dist.all_gather(parts, x)
+        got = parts[1][0]
+    elif op == "all_gather_into_tensor":
+        y = torch.empty(8, device=where)
+        dist.all_gather_into_tensor(y, x)
+        got = y[4]
+    elif op == "reduce_scatter_tensor":
+        y = torch.empty(2, device=where)
+        dist.reduce_scatter_tensor(y, x)
+        got = y[0]
+    elif op == "isend/irecv":
+        y = torch.empty(4, device=where)
+        for w in (dist.isend(x, 1 - r), dist.irecv(y, 1 - r)):
+            w.wait()
+        got = y[0]
+    else:
+        parts = ([torch.empty(4, device=where) for _ in range(2)]
+                 if r == 0 else None)
+        dist.gather(x, parts, dst=0)
+        got = parts[1][0] if parts else x[0]
+    return f"ok: {got.item():g} on {got.device.type}"
+
+
+def probe_ops(where: str) -> dict:
+    """Each op of OPS in a gloo world of its own: {op: what happened}."""
+    from conflux_tpu_torch.launch import run_ranks
+
+    out = {}
+    for op in OPS:
+        try:
+            out[op] = run_ranks(2, _op_rank, op, where, backend="gloo",
+                                device=where, timeout=90)[0]
+        except (RuntimeError, TimeoutError) as e:      # the probe's finding
+            lines = [ln for ln in str(e).splitlines() if ln.strip()]
+            out[op] = "fails: " + " | ".join(lines[:1] + lines[-1:])[:240]
+    return out
+
+
+def _breakdown_rank(n: int, v: int, device: str):
+    """One rank of the breakdown: each path's wall and its collectives'
+    seconds and calls by kind, with the card synchronised around each."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import DIST_GRID
+    from conflux_tpu_torch import comm
+    from conflux_tpu_torch.cholesky.p25d import pcholesky
+    from conflux_tpu_torch.grid import make_grid
+    from conflux_tpu_torch.lu.p25d import plu
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    spent: dict = {}
+
+    def timed(name, fn):
+        def call(self, *args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            sync()
+            s, c = spent.get(name, (0.0, 0))
+            spent[name] = (s + time.perf_counter() - t0, c + 1)
+            return out
+        return call
+
+    for name in COLLECTIVES:
+        setattr(comm.Comm, name, timed(name, getattr(comm.Comm, name)))
+    grid = make_grid(DIST_GRID, device=device)
+    g = torch.Generator(device=device).manual_seed(42)
+    A = 5.0 + torch.rand(n, n, generator=g, device=device)
+    g = torch.Generator(device=device).manual_seed(43)
+    S = torch.rand(n, n, generator=g, device=device)
+    S = S + S.T
+    S.mul_(0.5)
+    S.diagonal().add_(float(n))
+    out = {}
+    for path in ("lu_25d", "cholesky_25d"):
+        sync()
+        dist.barrier()
+        spent.clear()
+        t0 = time.perf_counter()
+        if path == "lu_25d":
+            plu(A, grid, v, "tournament", "high")
+        else:
+            pcholesky(S, grid, v, "high")
+        sync()
+        out[path] = {"wall": time.perf_counter() - t0, "spent": dict(spent)}
+    return out
+
+
+def breakdown(n: int, v: int, device: str, smi: str):
+    from chip_smoke import DIST_GRID
+    from conflux_tpu_torch.launch import run_ranks
+
+    P = DIST_GRID[0] * DIST_GRID[1] * DIST_GRID[2]
+    ranks = run_ranks(P, _breakdown_rank, n, v, device, backend="gloo",
+                      device=device, timeout=900)
+    for path in ("lu_25d", "cholesky_25d"):
+        print(f"{path} {'x'.join(map(str, DIST_GRID))} N={n} v={v} 'high', "
+              f"{P} gloo ranks on {device} ({smi}); seconds per rank:")
+        for r, res in enumerate(ranks):
+            e = res[path]
+            comm_s = sum(s for s, _ in e["spent"].values())
+            ops = ", ".join(f"{k} {s:.3f} ({c})"
+                            for k, (s, c) in sorted(e["spent"].items()))
+            print(f"  rank {r}: wall {e['wall']:.3f}, collectives "
+                  f"{comm_s:.3f} [{ops}], own work {e['wall'] - comm_s:.3f}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int)
+    ap.add_argument("--v", type=int)
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--ops", action="store_true")
+    mode.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+
+    import torch
+
+    smi = "the CPU"
+    if args.device == "cuda":
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {smi}")
+    if args.ops:
+        for op, what in probe_ops(args.device).items():
+            print(f"gloo {op:24s} on {args.device}: {what}", flush=True)
+        return 0
+    import chip_smoke
+
+    if args.device == "cuda":
+        chip_smoke.phase_build()
+    breakdown(args.n or chip_smoke.DIST_N, args.v or chip_smoke.DIST_V,
+              args.device, smi)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
