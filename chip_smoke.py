@@ -58,17 +58,28 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. Cholesky path: cholesky(A, v=1536, precision='high') at N=32768;
  12. swap and split paths: crout with compaction='swap' and 'split'.
  13. dist: the 2.5D rank programs, 8 ranks of one gloo world on this one
-     card as a (2, 2, 2) grid (kernels built in this process first, so
-     the ranks only load them): plu at the auto variant ('windowed'),
-     tournament pivoting, and pcholesky at the auto variant ('crout'), in
-     'high' at N = 16384, v = 512, each rank's launch counts reset just
-     before each and read just after, K1's per route and K3's held on
-     every rank to the counts derived from the step loops
-     (`dist_k1_blocks`); both residuals on grid rank 0; then 'full'
-     pivoting at N = 2048, v = 128, 'highest', whose pivots must equal the
-     single-device lu_factor's. The walls are of 8 processes sharing one
-     card with gloo moving every collective through host memory: not a
-     multi-GPU time.
+     card (kernels built in this process first, so the ranks only load
+     them), in 'high' at N = 16384, v = 512 on a (2, 2, 2) grid: lu_25d
+     at the auto variant ('windowed') and the left-looking 'crout', both
+     tournament, and cholesky_25d at the auto variant ('crout'); the crout
+     LU on a (1, 2, 4) grid (the fused panel) and the profiled LU
+     (lu_25d_profiled) beside its unprofiled twin (lu_25d(unroll=False)),
+     both at N = 8192 on (2, 2, 2); pdgetrf and pdpotrf at their default
+     grid, tile and variant, 'highest', N = 8192. Each run's launch counts
+     are reset just before its factorization and read just after, K1's per
+     route and K3's held on every rank to the counts derived from the step
+     loops (`dist_k1_blocks`); each is gated on every rank by the SUMMA
+     residual of its distributed blocks (`lu_residual_dist`,
+     `cholesky_residual_dist`) before the gather, and that value held to
+     1e-6 and to within 3x of the blocked residual of the gathered factor
+     on grid rank 0; pdgetrf's ipiv replayed as swaps must give perm; the
+     profiled LU's F and pivots must equal its twin's bit for bit, with
+     the same launches, and its region table (five substeps, Nt calls
+     each) is printed. Then `retile` from v = 512 to 1024 and back
+     (bit-equal), and 'full' pivoting at N = 2048, v = 128, 'highest',
+     whose pivots must equal the single-device lu_factor's. The walls are
+     of 8 processes sharing one card with gloo moving every collective
+     through host memory: not a multi-GPU time.
 
 Each kernel phase times the kernel, its plain version and, where one
 PyTorch call computes the same function, that call (the kernel's
@@ -230,20 +241,30 @@ ROW_MOVES = (("scatter", V), ("gather", V), ("gather", N - V))
 # the split path's narrow panel gather T[origin, k:k+w] at k = V: rows of
 # V f32 (6 KB) with row stride N
 PANEL_SLICE = (V, 2 * V)
-# the distributed phase: plu and pcholesky on a (2, 2, 2) grid of 8 gloo
-# ranks on this one card, at the reference configuration's N (BASELINE.md),
-# v = 512 (l = v / Pz = 256: K3 runs every step), and the 'full'-pivot
-# parity check at (N, v) = DIST_CHECK
+# the distributed phase: the 2.5D rank programs on a (2, 2, 2) grid of 8
+# gloo ranks on this one card, at the reference configuration's N
+# (BASELINE.md), v = 512 (l = v / Pz = 256: K3 runs every right-looking
+# step); the crout LU also on a (1, 2, 4) grid (Px = 1: the fused panel),
+# pdgetrf / pdpotrf at their default grid and tile, and the profiled LU,
+# all three at N cut to DIST_N / 2 to keep the phase short; the retile
+# round trip from v to 2v; and the 'full'-pivot parity check at
+# (N, v) = DIST_CHECK
 DIST_GRID = (2, 2, 2)
 DIST_N, DIST_V = 16384, 512
+DIST_CROUT_GRID = (1, 2, 4)
 DIST_WINDOWS = 8              # lu_25d's default window count
 DIST_CHECK = (2048, 128)
 DIST_TIMEOUT = 600.0
+# the distributed gates: each SUMMA residual within this factor of the
+# residual of the gathered factor (tests/test_pgemm.py:38)
+GATE_RATIO = 3.0
 # K1 at the distributed paths' shapes (w, m, mode, j0): the local round
-# over a rank's Ml = N / Px rows, the merge round over 2v candidates, and
-# the forced [v, v] tiles (the winners' refactor, Cholesky's potrf_tile)
+# over a rank's Ml = N / Px rows, the merge round over 2v candidates, the
+# forced [v, v] tiles (the winners' refactor, Cholesky's potrf_tile), and
+# the (1, 2, 4) crout's fused panel over its Ml = N / 2 rows
 DIST_K1 = ((64, DIST_N // DIST_GRID[0], "unforced", 0),
-           (64, 2 * DIST_V, "unforced", 0), (64, DIST_V, "forced", 64))
+           (64, 2 * DIST_V, "unforced", 0), (64, DIST_V, "forced", 64),
+           (128, DIST_N // 2, "finish", 0))
 
 
 def fail(msg: str):
@@ -1132,108 +1153,283 @@ def phase_cholesky_path(smi: str):
     return counts
 
 
-def dist_k1_blocks(path: str, n: int = DIST_N, v: int = DIST_V):
-    """(w, m, forced) of every K1 block ONE rank of the DIST_GRID grid
-    launches in one `path` run, from the rank programs' step loops (every
-    rank launches the same blocks): the panel's 64-wide blocks
-    (ops/panel._BLOCK). lu_25d (tournament, 'windowed'): per step, the
-    local round over the rank's mr working rows, the one merge round
-    (Px = 2) over the 2v candidates, and the forced refactor of the v
-    winners; mr shrinks to the row frontier at each window start.
-    cholesky_25d ('crout'): per step, the forced [v, v] diagonal tile."""
+def dist_k1_blocks(program: str, n: int = DIST_N, v: int = DIST_V,
+                   shape=DIST_GRID):
+    """(w, m, forced) of every K1 block ONE rank of a `shape` grid
+    launches in one run of `program`, from the rank programs' step loops
+    (every rank launches the same blocks). 'windowed' and 'fori' (the
+    right-looking lu_25d, tournament): per step, the local round over the
+    rank's mr working rows in 64-wide blocks (ops/panel._BLOCK), the
+    merge rounds over 2v candidates ((Px - 1).bit_length() of them) and
+    the forced refactor of the v winners; mr shrinks to the row frontier
+    at each window start ('windowed', never on 'fori'). 'crout': the same
+    at Px > 1, with a rebalance every crout_rowpart_default(Px, Nt) steps;
+    at Px == 1 the fused panel instead, 128-wide blocks over mr rows (K1
+    unforced with finish). 'cholesky' (cholesky_25d, any variant): per
+    step, the forced [v, v] diagonal tile."""
     from conflux_tpu_torch.dispatch import segment_bounds
-    from conflux_tpu_torch.lu.p25d import _row_frontier
+    from conflux_tpu_torch.lu.p25d import _row_frontier, \
+        crout_rowpart_default
 
-    Px = DIST_GRID[0]
+    Px = shape[0]
     Nt = n // v
     per = v // 64
-    if path == "cholesky_25d":
+    if program == "cholesky":
         return [(64, v, True)] * (Nt * per)
+    if program == "windowed":
+        starts = {lo for lo, _ in segment_bounds(Nt, DIST_WINDOWS) if lo > 0}
+    elif program == "crout":
+        rp = crout_rowpart_default(Px, Nt)
+        starts = {k for k in range(1, Nt) if k % rp == 0}
+    else:
+        starts = set()
     blocks = []
     mr = n // Px
-    starts = {lo for lo, _ in segment_bounds(Nt, DIST_WINDOWS) if lo > 0}
+    rounds = (Px - 1).bit_length()
     for k in range(Nt):
         if k in starts:
             mr = min(mr, _row_frontier(n, k, v, Px))
-        blocks += ([(64, mr, False)] * per + [(64, 2 * v, False)] * per
+        if program == "crout" and Px == 1:
+            blocks += [(128, mr, False)] * (v // 128)
+            continue
+        blocks += ([(64, mr, False)] * per
+                   + [(64, 2 * v, False)] * (per * rounds)
                    + [(64, v, True)] * per)
     return blocks
 
 
-def _dist_want(path: str, route, n: int, v: int) -> dict:
-    """Each counter's launches on one rank in one `path` run: K1's in all
-    and per route (route(w, m, forced) names a block's route on this
-    card), K3's one per LU step where l = v / Pz is a multiple of 128
-    (`_trailing_sub`'s condition; 'high'), every other kernel's none."""
+def _dist_want(program: str, route, n: int, v: int, shape,
+               precision: str) -> dict:
+    """Each counter's launches on one rank in one run of `program`: K1's
+    in all and per route (route(w, m, forced) names a block's route on
+    this card), K3's one per right-looking LU step in 'high' where
+    l = v / Pz is a multiple of 128 (`_trailing_sub`'s condition), every
+    other kernel's none."""
     want = {name: 0 for name in _counters()}
-    blocks = dist_k1_blocks(path, n, v)
+    blocks = dist_k1_blocks(program, n, v, shape)
     want["rank1_panel"] = len(blocks)
     taken = [route(*b) for b in blocks]
     for r in K1_ROUTES:
         want[f"rank1_panel {r}"] = taken.count(r)
-    if path == "lu_25d" and (v // DIST_GRID[2]) % 128 == 0:
+    if (program in ("windowed", "fori") and precision == "high"
+            and (v // shape[2]) % 128 == 0):
         want["schur_update"] = want["schur_update wgmma"] = n // v
     return want
 
 
-def _dist_rank(n: int, v: int, check):
-    """One rank of the dist phase (runs in its own process): plu and
-    pcholesky at the auto variant, 'high', on the DIST_GRID grid, each
-    with every launch counter set to 0 just before and read just after;
-    grid rank 0 checks both factors and the 'full'-pivot parity run."""
-    import torch
-    import torch.distributed as dist
-
-    from conflux_tpu_torch.cholesky.p25d import pcholesky
-    from conflux_tpu_torch.grid import make_grid
-    from conflux_tpu_torch.lu.p25d import plu
-    from conflux_tpu_torch.lu.single import lu_factor
-    from conflux_tpu_torch.validation import (
-        cholesky_residual_blocked,
-        lu_residual_blocked,
+def _dist_runs(n: int, v: int):
+    """(name, algorithm, shape, n, v, precision, unroll, what) of each
+    factorization of the dist phase; shape and v None: the entry
+    points' defaults (pdgetrf / pdpotrf)."""
+    half = n // 2
+    return (
+        ("lu_25d", "lu", DIST_GRID, n, v, "high", None,
+         "tournament, auto variant"),
+        ("cholesky_25d", "cholesky", DIST_GRID, n, v, "high", None,
+         "auto variant"),
+        ("lu_25d crout", "lu", DIST_GRID, n, v, "high", "crout",
+         "tournament, the left-looking program"),
+        ("lu_25d crout fused", "lu", DIST_CROUT_GRID, half, v, "high",
+         "crout", "tournament, Px = 1: the fused panel"),
+        ("pdgetrf", "lu", None, half, None, "highest", None,
+         "its default grid, tile and variant"),
+        ("pdpotrf", "cholesky", None, half, None, "highest", None,
+         "its default grid, tile and variant"),
+        ("lu_25d_profiled", "lu", DIST_GRID, half, v, "high", False,
+         "substep regions, each fenced"),
+        ("lu_25d fori", "lu", DIST_GRID, half, v, "high", False,
+         "the profiled run's unprofiled twin"),
     )
 
-    grid = make_grid(DIST_GRID, device="cuda")
-    root = grid.rank == 0
-    g = torch.Generator(device="cuda").manual_seed(42)
-    A = 5.0 + torch.rand(n, n, generator=g, device="cuda")   # the LU input
-    g = torch.Generator(device="cuda").manual_seed(43)
-    S = torch.rand(n, n, generator=g, device="cuda")         # Cholesky's
+
+def _run_shape(name, algorithm, shape, n, v):
+    """(grid shape, v, rank-program variant) of one run of the dist phase,
+    as the entry points choose them for a world of DIST_GRID's size."""
+    from types import SimpleNamespace
+
+    from conflux_tpu_torch.dispatch import choose_variant
+    from conflux_tpu_torch.grid import choose_grid_cholesky, \
+        choose_grid_lu, choose_tile_cholesky
+    from conflux_tpu_torch.layout import BlockCyclic
+
+    P = DIST_GRID[0] * DIST_GRID[1] * DIST_GRID[2]
+    if shape is None:
+        shape = (choose_grid_lu(n, n, P) if algorithm == "lu"
+                 else choose_grid_cholesky(P, n))
+        v = choose_tile_cholesky(n, shape, P)
+    Px, Py, Pz = shape
+    # a descriptor on the grid's shape alone: no process group needed
+    grid = SimpleNamespace(Px=Px, Py=Py, Pz=Pz, P=Px * Py * Pz)
+    return shape, v, choose_variant(BlockCyclic.create(n, n, v, grid),
+                                    algorithm)
+
+
+def _dist_inputs(n: int, dev: str):
+    """chip_smoke's LU input (5 + U(0, 1), seed 42) and Cholesky input
+    ((X + X^T)/2 + n I, X ~ U(0, 1), seed 43: SPD by Gershgorin), made on
+    the card from a seed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(42)
+    A = 5.0 + torch.rand(n, n, generator=g, device=dev)
+    g = torch.Generator(device=dev).manual_seed(43)
+    S = torch.rand(n, n, generator=g, device=dev)
     S = S + S.T
     S.mul_(0.5)
     S.diagonal().add_(float(n))
-    out = {"rank": grid.rank, "device": str(grid.device)}
-    for path in ("lu_25d", "cholesky_25d"):
+    return A, S
+
+
+def _ipiv_walk(ipiv, n: int):
+    """The row order LAPACK's sequential swaps give: rows i and
+    ipiv[i] - 1 swapped in turn, for i = 0 .. n - 1."""
+    p = np.arange(n)
+    for i, j in enumerate(np.asarray(ipiv)[:n] - 1):
+        p[i], p[j] = p[j], p[i]
+    return p
+
+
+def _dist_rank(n: int, v: int, check):
+    """One rank of the dist phase (runs in its own process). Each
+    factorization of `_dist_runs`: distribute, the rank program with
+    every launch counter set to 0 just before it and read just after, the
+    SUMMA residual gate on the distributed blocks (every rank), then the
+    gather to grid rank 0, which checks the gathered factor with the
+    blocked gate. Then the retile round trip, and the 'full'-pivot parity
+    run on grid rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from conflux_tpu_torch import profiler
+    from conflux_tpu_torch.cholesky.p25d import cholesky_25d
+    from conflux_tpu_torch.grid import make_grid
+    from conflux_tpu_torch.layout import BlockCyclic, distribute, retile, \
+        undistribute
+    from conflux_tpu_torch.lu.p25d import lu_25d, plu
+    from conflux_tpu_torch.lu.profiled import lu_25d_profiled
+    from conflux_tpu_torch.lu.single import lu_factor
+    from conflux_tpu_torch.scalapack import pdgetrf, pdpotrf
+    from conflux_tpu_torch.validation import (
+        cholesky_residual_blocked,
+        cholesky_residual_dist,
+        lu_residual_blocked,
+        lu_residual_dist,
+    )
+
+    def sync():
         torch.cuda.synchronize()
+
+    grids = {DIST_GRID: make_grid(DIST_GRID, device="cuda"),
+             DIST_CROUT_GRID: make_grid(DIST_CROUT_GRID, device="cuda")}
+    out = {"rank": dist.get_rank(), "device": str(grids[DIST_GRID].device)}
+    inputs = {m: _dist_inputs(m, "cuda") for m in (n, n // 2)}
+    kept = {}
+    for (name, algorithm, shape, m, vv, precision, unroll,
+         _) in _dist_runs(n, v):
+        A, S = inputs[m]
+        M = A if algorithm == "lu" else S
+        sync()
         dist.barrier()
         _reset_counts()
         t0 = time.perf_counter()
-        if path == "lu_25d":
-            F, perm = plu(A, grid, v, "tournament", "high")
+        perm, table = None, None
+        if name in ("pdgetrf", "pdpotrf"):
+            f = (pdgetrf if name == "pdgetrf" else pdpotrf)(M)
+            desc, F, perm = f.desc, f.data, f.perm
+            G = None
         else:
-            F, perm = pcholesky(S, grid, v, "high"), None
-        torch.cuda.synchronize()
-        entry = {"ms": (time.perf_counter() - t0) * 1e3, "counts": _counts()}
-        if root:
-            entry["on_card"] = F.is_cuda
+            grid = grids[shape]
+            desc = BlockCyclic.create(m, m, vv, grid)
+            G = distribute(M, desc)
+            if name == "lu_25d_profiled":
+                profiler.enable(True)
+                profiler.PC()
+                F, perm = lu_25d_profiled(G, desc, "tournament", precision)
+                sync()
+                table = {k: (c.calls, c.wall) for k, c in
+                         profiler._GLOBAL.root.children.items()}
+                report = profiler._GLOBAL.report()
+                profiler.enable(False)
+                profiler.PC()
+            elif algorithm == "lu":
+                F, perm = lu_25d(G, desc, "tournament", precision, unroll)
+            else:
+                F = cholesky_25d(G, desc, precision, unroll)
+        sync()
+        t1 = time.perf_counter()
+        entry = {"counts": _counts(), "grid": str(desc.grid), "v": desc.v}
+        if G is None:
+            G = distribute(M, desc)           # the gate's input blocks
+            sync()
+        tg = time.perf_counter()
+        if perm is None:
+            gate = cholesky_residual_dist(G, F, desc)
+        else:
+            gate = lu_residual_dist(G, F, perm, desc)
+        sync()
+        t2 = time.perf_counter()
+        if name in ("pdgetrf", "pdpotrf"):
+            dense = f.dense()
+        else:
+            dense = undistribute(F, desc)
+        sync()
+        t3 = time.perf_counter()
+        entry.update({"ms": (t1 - t0 + t3 - t2) * 1e3, "factor_ms":
+                      (t1 - t0) * 1e3, "gate_s": t2 - tg, "gate": gate})
+        if table is not None:
+            entry["table"] = table
+            entry["report"] = report
+        if name in ("lu_25d_profiled", "lu_25d fori"):
+            kept[name] = (F, perm)
+        if dense is not None:
+            entry["on_card"] = dense.is_cuda
             if perm is None:
-                entry["residual"] = cholesky_residual_blocked(S, F)
+                entry["residual"] = cholesky_residual_blocked(
+                    M, dense[:m, :m])
             else:
                 entry["on_card"] &= perm.is_cuda
                 entry["permutation"] = torch.equal(
-                    torch.sort(perm).values, torch.arange(n, device="cuda"))
-                entry["residual"] = lu_residual_blocked(A, F, perm)
-        out[path] = entry
-        del F, perm
-    del A, S
+                    torch.sort(perm).values,
+                    torch.arange(desc.M, device="cuda"))
+                entry["residual"] = lu_residual_blocked(M, dense, perm)
+            if name == "pdgetrf":
+                entry["ipiv_walk"] = bool(np.array_equal(
+                    _ipiv_walk(f.ipiv(), desc.M), perm.cpu().numpy()))
+        out[name] = entry
+        del F, G, dense
+    F1, p1 = kept["lu_25d_profiled"]
+    F2, p2 = kept["lu_25d fori"]
+    out["profiled_equal"] = bool(torch.equal(F1, F2) and torch.equal(p1, p2))
+    del kept, F1, F2, p1, p2
+
+    # the retile round trip: v -> 2v -> v on DIST_GRID
+    A = inputs[n][0]
+    grid = grids[DIST_GRID]
+    src = BlockCyclic.create(n, n, v, grid)
+    dst = BlockCyclic.create(n, n, 2 * v, grid)
+    G = distribute(A, src)
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    G2 = retile(G, src, dst)
+    sync()
+    t1 = time.perf_counter()
+    back = retile(G2, dst, src)
+    sync()
+    t2 = time.perf_counter()
+    out["retile"] = {"there_s": t1 - t0, "back_s": t2 - t1,
+                     "equal": bool(torch.equal(back, G)
+                                   and torch.equal(G2, distribute(A, dst)))}
+    del inputs, A, G, G2, back
     torch.cuda.empty_cache()
+
     # 'full' pivoting is exact partial pivoting: its pivots must be the
     # single-device port's
     n2, v2 = check
     g = torch.Generator(device="cuda").manual_seed(44)
     A2 = torch.randn(n2, n2, generator=g, device="cuda")
     F2, p2 = plu(A2, grid, v2, "full", "highest")
-    if root:
+    if grid.rank == 0:
         Fs, ps = lu_factor(A2, v=v2, precision="highest")
         out["full"] = {
             "equal": torch.equal(p2, ps),
@@ -1248,9 +1444,10 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
                check=DIST_CHECK):
     """The distributed paths: DIST_GRID's 8 ranks as 8 processes of one
     gloo world on this one card (kernels built already, so the ranks only
-    load them), each running plu and pcholesky; every rank's launches
-    held to the step loops' counts. Returns each path's launches summed
-    over the ranks."""
+    load them), each running every factorization of `_dist_runs`; every
+    rank's launches held to the step loops' counts, every distributed
+    gate to its bound and to the gathered factor's residual. Returns each
+    run's launches summed over the ranks."""
     from conflux_tpu_torch.launch import run_ranks
     from conflux_tpu_torch.ops import cuda_panel
 
@@ -1263,38 +1460,88 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
     ranks = run_ranks(P, _dist_rank, n, v, check, backend="gloo",
                       device="cuda", timeout=DIST_TIMEOUT)
     wall = time.perf_counter() - t0
-    grid = "x".join(map(str, DIST_GRID))
     sums = {}
-    for path, how in (("lu_25d", "plu tournament, auto variant 'windowed'"),
-                      ("cholesky_25d", "pcholesky, auto variant 'crout'")):
-        want = _dist_want(path, cuda_panel.route, n, v)
+    for (name, algorithm, shape, m, vv, precision, unroll,
+         what) in _dist_runs(n, v):
+        shape, vv, auto = _run_shape(name, algorithm, shape, m, vv)
+        variant = {None: auto, False: "fori"}.get(unroll, unroll)
+        program = "cholesky" if algorithm == "cholesky" else variant
+        if program not in ("windowed", "fori", "crout", "cholesky"):
+            fail(f"dist {name}: no launch count for variant {variant!r}")
+        want = _dist_want(program, cuda_panel.route, m, vv, shape,
+                          precision)
         for r in ranks:
-            bad = {k: (r[path]["counts"][k], w) for k, w in want.items()
-                   if r[path]["counts"][k] != w}
+            bad = {k: (r[name]["counts"][k], w) for k, w in want.items()
+                   if r[name]["counts"][k] != w}
             if bad:
-                fail(f"dist {path} rank {r['rank']}: launches (got, "
+                fail(f"dist {name} rank {r['rank']}: launches (got, "
                      f"expected) {bad}")
-        root = ranks[0][path]
+        root = ranks[0][name]
+        grid = "x".join(map(str, shape))
+        if root["grid"] != grid or root["v"] != vv:
+            fail(f"dist {name}: ran on {root['grid']} v={root['v']}, "
+                 f"expected {grid} v={vv}")
         if not root["on_card"]:
-            fail(f"dist {path}: the result left the card")
-        if path == "lu_25d" and not root["permutation"]:
-            fail("dist lu_25d: perm is not a permutation")
+            fail(f"dist {name}: the result left the card")
+        if algorithm == "lu" and not root["permutation"]:
+            fail(f"dist {name}: perm is not a permutation")
         if not root["residual"] <= RESIDUAL_GATE:
-            fail(f"dist {path}: residual {root['residual']} > "
+            fail(f"dist {name}: residual {root['residual']} > "
                  f"{RESIDUAL_GATE}")
-        ms = [r[path]["ms"] for r in ranks]
-        sums[path] = {k: sum(r[path]["counts"][k] for r in ranks)
-                      for k in want}
-        print(f"dist {path} {grid} N={n} v={v} 'high' ({how}), 8 ranks on "
-              "one card, gloo through the host: not a multi-GPU time, on "
-              f"{smi}: wall rank 0 {ms[0]:.1f} ms, max over ranks "
-              f"{max(ms):.1f} ms (distribute, factorization and the gather "
-              f"to rank 0), residual {root['residual']:.3e}, launches per "
+        gates = {r[name]["gate"] for r in ranks}
+        gate = root["gate"]
+        if len(gates) != 1:
+            fail(f"dist {name}: the ranks' distributed gates differ: {gates}")
+        if not (gate <= RESIDUAL_GATE
+                and root["residual"] / GATE_RATIO < gate
+                < root["residual"] * GATE_RATIO):
+            fail(f"dist {name}: distributed gate {gate} against the "
+                 f"gathered factor's {root['residual']} (bound "
+                 f"{RESIDUAL_GATE}, within {GATE_RATIO}x)")
+        if name == "pdgetrf" and not root["ipiv_walk"]:
+            fail("dist pdgetrf: ipiv's swaps do not give perm")
+        ms = [r[name]["ms"] for r in ranks]
+        sums[f"dist {name}"] = {k: sum(r[name]["counts"][k] for r in ranks)
+                                for k in want}
+        print(f"dist {name} {grid} N={m} v={vv} '{precision}' ({what}: "
+              f"{variant}), 8 ranks on one card, gloo through the host: "
+              f"not a multi-GPU time, on {smi}: wall rank 0 "
+              f"{ms[0]:.1f} ms, max over ranks {max(ms):.1f} ms "
+              f"(distribute, factorization and the gather to rank 0; the "
+              f"factorization {root['factor_ms']:.1f} ms on rank 0), "
+              f"distributed gate {gate:.3e} in {root['gate_s']:.2f} s, "
+              f"gathered residual {root['residual']:.3e}, launches per "
               f"rank {{K1: {want['rank1_panel']} (" + ", ".join(
                   f"{r} {want['rank1_panel ' + r]}" for r in K1_ROUTES)
               + f"), K3: {want['schur_update']}}} as derived from the step "
               "loop on every rank")
+    prof, fori = (ranks[0][k] for k in ("lu_25d_profiled", "lu_25d fori"))
+    if not all(r["profiled_equal"] for r in ranks):
+        fail("dist lu_25d_profiled: F or pivots differ from lu_25d("
+             "unroll=False)'s")
+    if prof["counts"] != fori["counts"]:
+        fail(f"dist lu_25d_profiled: launches {prof['counts']} differ from "
+             f"the unprofiled run's {fori['counts']}")
+    names = ("step0_reduce", "step1_pivot", "step23_rows", "step45_trsm",
+             "step6_update")
+    Nt = (n // 2) // v
+    if (sorted(prof["table"]) != sorted(names)
+            or any(prof["table"][k][0] != Nt for k in names)):
+        fail(f"dist lu_25d_profiled: region table {prof['table']}")
+    print(f"dist lu_25d_profiled: F and pivots bit-equal to lu_25d(unroll="
+          f"False) on every rank, the same launches; rank 0's regions "
+          f"(calls = Nt = {Nt}):")
+    for line in prof["report"].splitlines():
+        print("  " + line)
+    ret = ranks[0]["retile"]
+    if not all(r["retile"]["equal"] for r in ranks):
+        fail("dist retile: the round trip is not bit-equal")
+    print(f"dist retile {'x'.join(map(str, DIST_GRID))} N={n} v={v} -> "
+          f"v={2 * v} and back: bit-equal on every rank (and equal "
+          f"to distribute at v={2 * v}), rank 0 "
+          f"{ret['there_s']:.2f} s there, {ret['back_s']:.2f} s back")
     full = ranks[0]["full"]
+    grid = "x".join(map(str, DIST_GRID))
     print(f"dist 'full' pivoting {grid} N={check[0]} v={check[1]} 'highest': "
           f"pivots equal to the single-device lu_factor's {full['equal']} "
           f"(agree {full['agree']:.4f}), max|F - F_single| / max|F_single| "
@@ -1307,7 +1554,7 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
         fail("a rank imported jax")
     devices = sorted({r["device"] for r in ranks})
     print(f"dist phase: {P} ranks on {devices}, {wall:.1f} s in all "
-          "(spawn, process groups, both paths and the check)")
+          "(spawn, process groups, every run, the gates and the checks)")
     return sums
 
 

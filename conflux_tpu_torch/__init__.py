@@ -20,7 +20,13 @@ The 2.5D distributed LU (`lu.p25d`: `lu_25d`, `plu`) and Cholesky
 (`cholesky.p25d`: `cholesky_25d`, `pcholesky`) run one process per rank
 of a torch.distributed world (`launch.run_ranks`, or torchrun): `grid`
 places the rank in its (Px, Py, Pz) grid, `comm` gives it JAX's
-named-axis collectives, `layout` (un)distributes the block-cyclic matrix.
+named-axis collectives, `layout` (un)distributes the block-cyclic matrix
+and moves it between descriptors (`retile`). `scalapack` has the
+ScaLAPACK-style entry points `pdgetrf` / `pdpotrf`; `pgemm` the SUMMA product
+(`pgemm.pgemm`) behind the distributed gates `validation.lu_residual_dist` /
+`cholesky_residual_dist`; `profiler` the semiprof-style region timers of
+the substep-profiled rank programs (`lu.profiled`, `cholesky.profiled`);
+`spec` the serial numpy simulation and the comm models.
 """
 
 __version__ = "0.1.0"
@@ -29,7 +35,10 @@ from conflux_tpu_torch.errors import ConfluxError, ErrorCode
 
 
 def __getattr__(name):
-    # the factorization API resolves lazily to keep `import` light
+    # the factorization API resolves lazily to keep `import` light. No
+    # name here is also a submodule's ('pgemm'): importing the submodule
+    # binds it as a package attribute, which would shadow this hook and
+    # turn the name from the function into the module
     import importlib
 
     lazy = {
@@ -45,6 +54,12 @@ def __getattr__(name):
         "cholesky_25d": "conflux_tpu_torch.cholesky.p25d",
         "pcholesky": "conflux_tpu_torch.cholesky.p25d",
         "run_ranks": "conflux_tpu_torch.launch",
+        "pdgetrf": "conflux_tpu_torch.scalapack",
+        "pdpotrf": "conflux_tpu_torch.scalapack",
+        "plu_residual_25d": "conflux_tpu_torch.pgemm",
+        "pchol_residual_25d": "conflux_tpu_torch.pgemm",
+        "lu_residual_dist": "conflux_tpu_torch.validation",
+        "cholesky_residual_dist": "conflux_tpu_torch.validation",
     }
     if name in lazy:
         return getattr(importlib.import_module(lazy[name]), name)
@@ -54,4 +69,6 @@ def __getattr__(name):
 __all__ = ["ConfluxError", "ErrorCode", "lu_factor", "lu_residual",
            "lu_residual_blocked", "cholesky_residual_blocked",
            "lu_solve", "cho_solve", "make_grid", "lu_25d", "plu",
-           "cholesky_25d", "pcholesky", "run_ranks"]
+           "cholesky_25d", "pcholesky", "run_ranks", "pdgetrf", "pdpotrf",
+           "plu_residual_25d", "pchol_residual_25d", "lu_residual_dist",
+           "cholesky_residual_dist"]

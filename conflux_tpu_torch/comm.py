@@ -18,6 +18,10 @@ semantics on torch.distributed process groups:
     into one slot per coordinate; coordinate i keeps slot i (JAX's
     `tiled=True`).
 
+Two more serve the layout layer: `gather` of every block to one rank
+(`layout.undistribute`) and the world's `all_to_all` (`layout.retile`,
+the move between two descriptors, COSTA's grid2grid).
+
 Rank coordinates follow the JAX mesh (conflux_tpu/grid.py:188-190):
 rank = (pi * Py + pj) * Pz + pz.
 
@@ -63,9 +67,9 @@ SUBSETS = (("x",), ("y",), ("z",), ("x", "y"), ("x", "z"), ("y", "z"),
 
 class CommRecord(NamedTuple):
     """One collective as this rank issued it: op ('psum', 'all_gather',
-    'ppermute', 'psum_scatter' or 'gather'), the axes it ran over, the
-    shape and dtype of this rank's operand, and for ppermute the number of
-    (src, dst) pairs."""
+    'ppermute', 'psum_scatter', 'gather' or 'all_to_all'), the axes it ran
+    over (() for the world), the shape and dtype of this rank's operand,
+    and for ppermute the number of (src, dst) pairs."""
 
     op: str
     axes: tuple
@@ -131,6 +135,12 @@ class Comm:
                 group = dist.new_group(members)
                 if rank in members:
                     self._groups[axes] = (group, members)
+
+    def world_size(self) -> int:
+        """The number of ranks of the world (1 without a process group)."""
+        import torch.distributed as dist
+
+        return dist.get_world_size() if dist.is_initialized() else 1
 
     def coord(self, axis: str) -> int:
         """This rank's coordinate along `axis` (jax.lax.axis_index)."""
@@ -225,6 +235,23 @@ class Comm:
             warnings.simplefilter("ignore", FutureWarning)
             dist.reduce_scatter_tensor(out, x, group=group)
         return out.movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, in_splits, out_splits):
+        """The whole world's all-to-all (`dist.all_to_all_single`), which
+        every rank of the world calls, idle ones too: this rank's 1-D t is
+        cut into consecutive chunks of in_splits[d] elements, chunk d goes
+        to world rank d, and the chunks received, out_splits[s] elements
+        from rank s, come back concatenated in rank order. Recorded with
+        the axes () of the world."""
+        import torch.distributed as dist
+
+        self._log("all_to_all", (), t)
+        if not dist.is_initialized():
+            return t.clone()
+        out = t.new_empty(sum(out_splits))
+        dist.all_to_all_single(out, t.contiguous(), list(out_splits),
+                               list(in_splits))
+        return out
 
     def gather(self, t: torch.Tensor, root: int = 0):
         """[P, *t.shape] of every grid rank's tensor, in rank order, on grid

@@ -1,7 +1,7 @@
 """Start the ranks of a distributed run: the counterpart of `mpirun`.
 
     from conflux_tpu_torch.launch import run_ranks
-    results = run_ranks(8, fn, *args, backend="gloo", device="cpu")
+    results = run_ranks(8, fn, *args, backend="gloo")
 
 runs fn(*args) in 8 processes of one torch.distributed world and returns
 each rank's result, in rank order. The processes start through the
@@ -10,9 +10,11 @@ temporary directory, so concurrent worlds (parallel test workers) never
 compete for a port. `fn` and its arguments must pickle (a module-level
 function), and so must its result. A rank that raises or outlives
 `timeout` fails the whole run: every rank is stopped and the error names
-the rank. device='cuda' gives each rank card rank % device_count
-(`torch.cuda.set_device`); one card can hold every rank of a gloo world,
-since gloo passes data through host memory.
+the rank. device='cuda', the default as in every entry point of the
+package, gives each rank card rank % device_count
+(`torch.cuda.set_device`), the card `grid.make_grid` places it on; one
+card can hold every rank of a gloo world, since gloo passes data through
+host memory. device='cpu' runs the ranks on the CPU.
 
 The same entry points run under `torchrun` (`env://`): `make_grid` calls
 `init_from_env` first, which joins the world torchrun describes.
@@ -69,8 +71,8 @@ def _rank_main(rank, P, init, backend, device, timeout, results, fn, args):
             dist.destroy_process_group()
 
 
-def run_ranks(P: int, fn, *args, backend: str = "gloo", device: str = "cpu",
-              timeout: float = 600.0):
+def run_ranks(P: int, fn, *args, backend: str = "gloo",
+              device: str = "cuda", timeout: float = 600.0):
     """fn(*args) on each of P ranks of a new world; returns their results
     in rank order. Raises RuntimeError naming the first rank that fails
     (with its traceback), TimeoutError naming the ranks that have not

@@ -8,7 +8,9 @@ of the cyclic-permuted global array, [Ml, Nl] in row-major local tiles:
 local row li*v + r is global row (li*Px + pi)*v + r. Every entry of the
 matrix is a sum over the z layers; layer 0 carries the data at
 distribution and the other layers carry zeros (lu_params.hpp:149-155).
-Here each rank holds only its own block, as a tensor on its device.
+Here each rank holds only its own block, as a tensor on its device, and
+`retile` / `redistribute` move a matrix between two descriptors by one
+all-to-all over the world.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from conflux_tpu_torch.comm import coords_of, rank_of
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
 from conflux_tpu_torch.grid import Grid
 
@@ -204,3 +207,97 @@ def undistribute(G: torch.Tensor, desc: BlockCyclic, root: int = 0):
     # B[pi, pj, li, r, lj, c] is global entry ((li*Px + pi)*v + r,
     # (lj*Py + pj)*v + c)
     return B.permute(2, 0, 3, 4, 1, 5).reshape(desc.M, desc.N).contiguous()
+
+
+def _moves(P_src: int, v_src: int, L_src: int, P_dst: int, v_dst: int,
+           device):
+    """For each source coordinate p along one axis, two [L_src] tensors:
+    the destination coordinate of each of p's local rows (or columns) and
+    its local index there."""
+    out = []
+    for p in range(P_src):
+        glob = local_row_to_global(p, P_src, v_src, L_src, device)
+        tile = glob // v_dst
+        out.append((tile % P_dst, (tile // P_dst) * v_dst + glob % v_dst))
+    return out
+
+
+def retile(G, src: BlockCyclic, dst: BlockCyclic):
+    """Move a distributed matrix from descriptor `src` to `dst` over the
+    same world: this rank's block of the same matrix under `dst` (layer 0
+    carries the data, the other layers zeros), None where `dst` leaves the
+    rank idle. The descriptors may differ in tile size and in the grid's
+    (Px, Py, Pz); the z-partials of `src` are summed on arrival. COSTA's
+    grid2grid transform between two CONFLUX layouts
+    (src/conflux/lu/layout.cpp), as one all-to-all over the world
+    (`comm.Comm.all_to_all`): every rank sends each destination rank the
+    entries it holds of that rank's block, and no rank ever holds the
+    whole matrix. Every rank of the world must call it, idle ones too
+    (G None there). Raises LAYOUT_MISMATCH on different global shapes."""
+    if (src.M, src.N) != (dst.M, dst.N):
+        raise ConfluxError(ErrorCode.LAYOUT_MISMATCH,
+                           f"retile requires identical global shapes, got "
+                           f"{(src.M, src.N)} and {(dst.M, dst.N)}")
+    gs, gd = src.grid, dst.grid
+    if not gs.idle and tuple(G.shape) != (src.Ml, src.Nl):
+        raise ConfluxError(ErrorCode.LAYOUT_MISMATCH,
+                           f"block {tuple(G.shape)} is not the source "
+                           f"descriptor's {(src.Ml, src.Nl)}")
+    comm = gs.comm
+    dev = gd.device if G is None else G.device
+    rows = _moves(gs.Px, src.v, src.Ml, gd.Px, dst.v, dev)
+    cols = _moves(gs.Py, src.v, src.Nl, gd.Py, dst.v, dev)
+    world = comm.world_size()
+    dst_ranks = {rank_of((a, b, 0), (gd.Px, gd.Py, gd.Pz)): (a, b)
+                 for a in range(gd.Px) for b in range(gd.Py)}
+
+    # what this rank sends: for destination rank d = (a, b, 0), the
+    # entries of its block whose rows go to row a and columns to column b
+    chunks, in_splits = [], [0] * world
+    if not gs.idle:
+        rown, _ = rows[gs.pi]
+        coln, _ = cols[gs.pj]
+        for d, (a, b) in sorted(dst_ranks.items()):
+            blk = G[rown == a][:, coln == b]
+            chunks.append(blk.reshape(-1))
+            in_splits[d] = blk.numel()
+    # a rank idle in `src` sends nothing (in the port's one dtype, f32)
+    send = (torch.cat(chunks) if chunks
+            else torch.zeros(0, dtype=torch.float32, device=dev))
+
+    # what this rank receives: from each source rank s = (p, q, z), the
+    # entries whose destination is this rank, in the sender's order
+    out_splits, places = [0] * world, []
+    if not gd.idle and gd.pz == 0:
+        for s in range(gs.P):
+            p, q, _ = coords_of(s, (gs.Px, gs.Py, gs.Pz))
+            rown, rloc = rows[p]
+            coln, cloc = cols[q]
+            rl, cl = rloc[rown == gd.pi], cloc[coln == gd.pj]
+            out_splits[s] = rl.numel() * cl.numel()
+            places.append((s, rl, cl))
+    recv = comm.all_to_all(send, in_splits, out_splits)
+    if gd.idle:
+        return None
+    out = torch.zeros((dst.Ml, dst.Nl), dtype=recv.dtype, device=dev)
+    offs = [0]
+    for n in out_splits:
+        offs.append(offs[-1] + n)
+    for s, rl, cl in places:
+        if rl.numel() and cl.numel():
+            # z-partials of one entry arrive from ranks in ascending pz
+            out.index_put_((rl[:, None], cl[None, :]),
+                           recv[offs[s]:offs[s + 1]].view(rl.numel(),
+                                                           cl.numel()),
+                           accumulate=True)
+    return out
+
+
+def redistribute(G, src: BlockCyclic, dst: BlockCyclic):
+    """Move a distributed matrix onto a descriptor on another grid of the
+    same world, for example from (2, 2, 2) to (2, 2, 1) with ranks 4-7
+    idle. The JAX package's `redistribute(X, sharding)` is a device_put
+    onto another sharding; the port has no sharding object, so the
+    destination is a `BlockCyclic` and the move is `retile`'s all-to-all,
+    whose contract it keeps."""
+    return retile(G, src, dst)

@@ -39,8 +39,12 @@ column window, and the names set its row rebalance and update split:
 rebalances every `rowpart` steps (default Px); 'lookahead' is 'unrolled'
 with each trailing update split so the next panel column is updated and
 reduced first; 'windowed' rebalances at each segment start of
-`dispatch.segment_bounds(Nt, windows)`. The left-looking 'crout' program
-is not ported yet (ROADMAP item 9).
+`dispatch.segment_bounds(Nt, windows)`.
+
+'crout' is the left-looking rank program (`_local_lu_25d_crout`): no
+trailing update; each step's panel column is assembled by one big-K
+product against the frozen L columns and the U rows already in F, and
+the winners' U12 row is finished by a second, distributed big-K product.
 """
 
 from __future__ import annotations
@@ -60,8 +64,8 @@ from conflux_tpu_torch.layout import (
     undistribute,
 )
 from conflux_tpu_torch.ops.gemm import schur_update
-from conflux_tpu_torch.ops.panel import _lu_select_loop_t, lu_nopivot, \
-    select_pivots
+from conflux_tpu_torch.ops.panel import _lu_select_loop_t, \
+    factor_panel_raw, lu_nopivot, select_pivots
 from conflux_tpu_torch.ops.tri import (
     schur_dot,
     trsm_left_lower_unit,
@@ -70,6 +74,7 @@ from conflux_tpu_torch.ops.tri import (
     upper,
 )
 from conflux_tpu_torch.precision import ieee_fp32
+from conflux_tpu_torch.profiler import no_region
 
 PIVOTINGS = ("tournament", "gather", "full", "none")
 
@@ -302,12 +307,45 @@ def _rebalance_steps(variant: str, Nt: int, Px: int, rowpart, windows):
     return set()
 
 
+def _choose_pivots(comm, pivoting: str, colk, active, gri, k: int, v: int,
+                   Px: int, own_y: bool):
+    """Step 1 on this rank's reduced panel column colk [mr, v]: (win_idx
+    [v] global rows in pivot order, lu00 [v, v] merged factor of the
+    winners), the same on every rank of an 'x' column. 'none' takes the
+    diagonal tile's rows (EmptyPivot, python/pivoting.py:17-76), located
+    by global row, from the owner column (one psum over ('x', 'y'))."""
+    if pivoting in ("tournament", "gather"):
+        return _tournament(comm, colk, active, gri, v, Px,
+                           "butterfly" if pivoting == "tournament"
+                           else "gather")
+    if pivoting == "full":
+        return _full_pivot(comm, colk, active, gri, v, Px)
+    win_idx = k * v + torch.arange(v, device=colk.device)
+    mine_n, dlr = _find_local_rows(gri, win_idx)
+    dcontrib = torch.where(mine_n[:, None], colk[dlr], 0.0)
+    a00 = comm.psum(dcontrib if own_y else torch.zeros_like(dcontrib),
+                    ("x", "y"))
+    return win_idx, lu_nopivot(a00)
+
+
+def _pivot_blocks(lu00):
+    """(L00, U00) of the winners' merged factor. An exactly-zero pivot
+    (rank-deficient panel) is 1 in the solves, so the factors stay finite
+    (LAPACK getrf's skip-scaling)."""
+    U00 = upper(lu00)
+    U00 = U00 + torch.diag((torch.diagonal(U00) == 0).to(U00.dtype))
+    return unit_lower(lu00), U00
+
+
 def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
                   G: torch.Tensor, rebalance_after=(),
-                  lookahead: bool = False):
+                  lookahead: bool = False, region=no_region):
     """The right-looking rank program on this rank's block G (not
     modified). Returns (F [Ml, Nl], this rank's block of the merged
-    factor in pivot order, and pivots [M], the same on every rank)."""
+    factor in pivot order, and pivots [M], the same on every rank).
+    region(name) is entered around each substep (step0_reduce,
+    step1_pivot, step23_rows, step45_trsm, step6_update): the profiled
+    program's fenced timers (lu/profiled.py); a null context otherwise."""
     g = desc.grid
     comm = g.comm
     v, Px, Py, Pz = desc.v, g.Px, g.Py, g.Pz
@@ -333,80 +371,69 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
         own_x = pi == k % Px
 
         # -- step 0: lazy z-reduction of the panel column --------------------
-        colk = colnext if lookahead else comm.psum(A[:, c0:c0 + v], "z")
+        with region("step0_reduce"):
+            colk = colnext if lookahead else comm.psum(A[:, c0:c0 + v], "z")
 
         # -- step 1: pivot selection over 'x' ---------------------------------
-        if pivoting in ("tournament", "gather"):
-            win_idx, lu00 = _tournament(
-                comm, colk, active, gri, v, Px,
-                "butterfly" if pivoting == "tournament" else "gather")
-        elif pivoting == "full":
-            win_idx, lu00 = _full_pivot(comm, colk, active, gri, v, Px)
-        else:
-            # round-robin: the diagonal-tile rows (EmptyPivot,
-            # python/pivoting.py:17-76), located by global row
-            win_idx = k * v + torch.arange(v, device=dev)
-            mine_n, dlr = _find_local_rows(gri, win_idx)
-            dcontrib = torch.where(mine_n[:, None], colk[dlr], 0.0)
-            a00 = comm.psum(dcontrib if own_y else torch.zeros_like(dcontrib),
-                            ("x", "y"))
-            lu00 = lu_nopivot(a00)
-        if pivoting != "none":
-            # selection ran on owner-column data: broadcast over 'y'
-            # (gpivots bcast, conflux_opt.hpp:863-872)
-            win_idx = comm.psum(win_idx if own_y
-                                else torch.zeros_like(win_idx), "y")
-            lu00 = comm.psum(lu00 if own_y else torch.zeros_like(lu00), "y")
-
-        pivots[k * v:(k + 1) * v] = win_idx
-        mine, lr = _find_local_rows(gri, win_idx)
-        active &= ~(gri[:, None] == win_idx[None, :]).any(dim=1)
+        with region("step1_pivot"):
+            win_idx, lu00 = _choose_pivots(comm, pivoting, colk, active, gri,
+                                           k, v, Px, own_y)
+            if pivoting != "none":
+                # selection ran on owner-column data: broadcast over 'y'
+                # (gpivots bcast, conflux_opt.hpp:863-872)
+                win_idx = comm.psum(win_idx if own_y
+                                    else torch.zeros_like(win_idx), "y")
+                lu00 = comm.psum(lu00 if own_y else torch.zeros_like(lu00),
+                                 "y")
+            pivots[k * v:(k + 1) * v] = win_idx
+            mine, lr = _find_local_rows(gri, win_idx)
+            active &= ~(gri[:, None] == win_idx[None, :]).any(dim=1)
 
         # -- steps 2+3: the v pivot rows, full width, on every rank ----------
         # trailing columns are z-partials and frozen L columns live on layer
         # 0, so one masked psum over ('x', 'z') gives the true rows
-        raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0), ("x", "z"))
+        with region("step23_rows"):
+            raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0),
+                            ("x", "z"))
 
         # -- steps 4+5: TRSMs ---------------------------------------------------
-        L00 = unit_lower(lu00)
-        U00 = upper(lu00)
-        # an exactly-zero pivot (rank-deficient panel) is 1 in the solves,
-        # so the factors stay finite (LAPACK getrf's skip-scaling)
-        U00 = U00 + torch.diag((torch.diagonal(U00) == 0).to(U00.dtype))
-        Y = trsm_left_lower_unit(L00, raw[:, c0:], method="invert")
-        if own_x and pz == 0:
-            # the output block row: L columns keep their raw values, the
-            # panel tile is lu00, trailing columns U01 = Y
-            F[r0f:r0f + v, :c0] = raw[:, :c0]
-            F[r0f:r0f + v, c0:] = torch.where(gt_col[None, c0:] > k, Y,
-                                              raw[:, c0:])
+        with region("step45_trsm"):
+            L00, U00 = _pivot_blocks(lu00)
+            Y = trsm_left_lower_unit(L00, raw[:, c0:], method="invert")
+            if own_x and pz == 0:
+                # the output block row: L columns keep their raw values, the
+                # panel tile is lu00, trailing columns U01 = Y
+                F[r0f:r0f + v, :c0] = raw[:, :c0]
+                F[r0f:r0f + v, c0:] = torch.where(gt_col[None, c0:] > k, Y,
+                                                  raw[:, c0:])
+                if own_y:
+                    F[r0f:r0f + v, c0:c0 + v] = lu00
+            L10 = trsm_right_upper(colk, U00, method="invert")
+            L10 = torch.where(active[:, None], L10, 0.0)
             if own_y:
-                F[r0f:r0f + v, c0:c0 + v] = lu00
-        L10 = trsm_right_upper(colk, U00, method="invert")
-        L10 = torch.where(active[:, None], L10, 0.0)
-        if own_y:
-            A[:, c0:c0 + v] = L10 if pz == 0 else 0.0
+                A[:, c0:c0 + v] = L10 if pz == 0 else 0.0
 
         # -- step 6: split-K trailing update (layer pz takes an l slice) -----
         # only that slice of L10 is broadcast over 'y' (the reference's
         # per-layer Iscatterv on jk_comm, conflux_opt.hpp:1424-1434)
-        L10p = torch.nn.functional.pad(L10, (0, kpad)) if kpad else L10
-        Lk = comm.psum(L10p[:, pz * l:(pz + 1) * l] if own_y
-                       else L10.new_zeros((mr, l)), "y")           # [mr, l]
-        Ymask = torch.where(gt_col[None, c0:] > k, Y, 0.0)
-        if kpad:
-            Ymask = torch.nn.functional.pad(Ymask, (0, 0, 0, kpad))
-        Yk = Ymask[pz * l:(pz + 1) * l]                            # [l, Nl-c0]
-        if lookahead and k + 1 < Nt:
-            # the next step's panel column first (all its tournament
-            # needs), then the rest of the window with that slice zeroed
-            c1 = ((k + 1) // Py) * v
-            _trailing_sub(A, Lk, Yk[:, c1 - c0:c1 - c0 + v].contiguous(),
-                          c1, c1 + v, precision, active)
-            colnext = comm.psum(A[:, c1:c1 + v], "z")
-            Yk = Yk.clone()
-            Yk[:, c1 - c0:c1 - c0 + v] = 0.0
-        _trailing_sub(A, Lk, Yk, c0, Nl, precision, active)
+        with region("step6_update"):
+            L10p = torch.nn.functional.pad(L10, (0, kpad)) if kpad else L10
+            Lk = comm.psum(L10p[:, pz * l:(pz + 1) * l] if own_y
+                           else L10.new_zeros((mr, l)), "y")       # [mr, l]
+            Ymask = torch.where(gt_col[None, c0:] > k, Y, 0.0)
+            if kpad:
+                Ymask = torch.nn.functional.pad(Ymask, (0, 0, 0, kpad))
+            Yk = Ymask[pz * l:(pz + 1) * l]                        # [l, Nl-c0]
+            if lookahead and k + 1 < Nt:
+                # the next step's panel column first (all its tournament
+                # needs), then the rest of the window with that slice zeroed
+                c1 = ((k + 1) // Py) * v
+                _trailing_sub(A, Lk, Yk[:, c1 - c0:c1 - c0 + v].contiguous(),
+                              c1, c1 + v, precision, active)
+                colnext = comm.psum(A[:, c1:c1 + v], "z")
+                Yk = Yk.clone()
+                Yk[:, c1 - c0:c1 - c0 + v] = 0.0
+            _trailing_sub(A, Lk, Yk, c0, Nl, precision, active)
 
         # -- row frontier: shed the dead rows --------------------------------
         if k in rebalance_after:
@@ -419,6 +446,182 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
                     # updated, so one z-reduction refreshes it
                     c1 = ((k + 1) // Py) * v
                     colnext = comm.psum(A[:, c1:c1 + v], "z")
+
+    if desc.M > desc.N:
+        F, pivots = _tall_tail(desc, comm, A, F, active, pivots, gri)
+    return F, pivots
+
+
+def crout_rowpart_default(Px: int, Nt: int) -> int:
+    """The crout rank program's rebalance cadence: the optimum tracked
+    ~Nt/4 rebalances, capped at a frontier shrink of 4 panels per rank
+    row (the JAX package's cadence sweeps, measured on a TPU). The crout
+    program has no trailing update, so stale frontiers cost it less than
+    the right-looking programs, whose default stays Px."""
+    return max(Px, min(4 * Px, -(-Nt // 4)))
+
+
+def _local_lu_25d_crout(desc: BlockCyclic, pivoting: str, precision: str,
+                        G: torch.Tensor, rowpart=None):
+    """The left-looking (crout) rank program on this rank's block G (not
+    modified): no trailing update. Returns (F, pivots) as `_local_lu_25d`.
+
+    A's frozen panel columns hold L multipliers on layer 0 of the owner
+    column (exact zeros on the other layers); its other columns keep the
+    raw z-partials and are never written. F's row block li holds step
+    li*Px + pi's pivot rows for this rank's columns, on layer 0: the U
+    rows the big-K products read. Per step k:
+
+      step 0  the U slab of the panel column (F[:nmy v, c0:c0+v] on the
+              owner column) is psum'd over 'y', all_gather'd over 'x' and
+              reordered to global step order; each rank takes
+              Lfrozen @ slab_sel (`schur_dot` in the step's mode), and one
+              [mr, v] psum over ('y', 'z') of (raw partials on the owner
+              column minus the layer-0 product) gives colk to every rank;
+      step 1  pivoting as in the right-looking program, on colk, which is
+              the same on every rank of a 'y' row, so the winners need no
+              broadcast. At Px == 1 ('tournament', 'gather') the local
+              elimination is the tournament: `factor_panel_raw(...,
+              block=128, merged=False)` (K1 unforced with finish) gives
+              the multipliers and the winners' finished rows, written into
+              A before the pivot rows are gathered;
+      steps 2+3  the raw pivot rows by one psum over ('x', 'z') (at
+              Px == 1 their panel block is lu00, replicated by one [v, v]
+              psum over 'y'); the winners' L history is all_gather'd over
+              'y', and the U12 correction schur_dot(Lmy, Fmy) psum'd over
+              'x';
+      steps 4+5  the TRSMs and the F and panel writes.
+
+    The all_gathers have the same size on every rank: nbf = ceil(k/Py)
+    frozen local column tiles and nmy = ceil(k/Px) F row blocks are
+    bounds every rank shares; tiles past step k pair with zero U rows
+    (unwritten F blocks), and the reorders pad to NB global tiles.
+    rowpart: the rebalance cadence (None = crout_rowpart_default, 0 =
+    never); `_rebalance_rows` moves the z-partials and L columns with the
+    rows."""
+    g = desc.grid
+    comm = g.comm
+    v, Px, Py = desc.v, g.Px, g.Py
+    Nl, Nt = desc.Nl, desc.Nt
+    pi, pj, pz = g.pi, g.pj, g.pz
+    dev = G.device
+    if rowpart is None:
+        rowpart = crout_rowpart_default(Px, Nt)
+
+    gri = local_row_to_global(pi, Px, v, desc.Ml, dev)
+    gt_col = local_tile_to_global(pj, Py, v, Nl, dev)
+    A = G.to(_compute_dtype(G.dtype), copy=True)
+    F = torch.zeros_like(A)
+    active = torch.ones(desc.Ml, dtype=torch.bool, device=dev)
+    pivots = torch.zeros(desc.M, dtype=torch.int64, device=dev)
+    # Px == 1: the local round is the final one, so its multipliers are
+    # L10 and it finishes the winners' rows (the fused panel)
+    fused = Px == 1 and pivoting in ("tournament", "gather")
+    gather_free = Px == 1 and Py == 1      # the reorders are identities
+
+    for k in range(Nt):
+        mr = A.shape[0]
+        c0 = (k // Py) * v
+        r0f = (k // Px) * v
+        own_y = pj == k % Py
+        own_x = pi == k % Px
+        nbf = -(-k // Py)      # frozen local column tiles (a shared bound)
+        nmy = -(-k // Px)      # this rank's F row blocks (a shared bound)
+        NB = max(nbf * Py, nmy * Px)   # padded global tile count
+
+        # -- step 0: panel assembly ------------------------------------------
+        partial = None
+        if k > 0:
+            slab_my = F[:nmy * v, c0:c0 + v]
+            slab_my = comm.psum(slab_my if own_y
+                                else torch.zeros_like(slab_my), "y")
+            if gather_free:
+                slab_sel = slab_my
+            else:
+                # step r = li*Px + p sits at [p, li] of the gather
+                slab = comm.all_gather(slab_my, "x")       # [Px, nmy*v, v]
+                slab = slab.reshape(Px, nmy, v, v).transpose(0, 1)
+                slab = slab.reshape(nmy * Px, v, v)
+                if NB > nmy * Px:
+                    slab = torch.cat([slab, slab.new_zeros(
+                        (NB - nmy * Px, v, v))])
+                # the global tiles of my frozen local columns
+                idx = torch.arange(nbf, device=dev) * Py + pj
+                slab_sel = slab[idx].reshape(nbf * v, v)
+            if pz == 0:         # frozen columns are zeros on other layers
+                partial = schur_dot(A[:, :nbf * v], slab_sel, precision)
+        rawp = A[:, c0:c0 + v] if own_y else A.new_zeros((mr, v))
+        colk = comm.psum(rawp if partial is None else rawp - partial,
+                         ("y", "z"))
+
+        # -- step 1: pivot selection ------------------------------------------
+        if fused:
+            piv_l, ok_l, Mloc, _ = factor_panel_raw(colk, active, v,
+                                                    block=128, merged=False)
+            win_idx = torch.where(ok_l, gri[piv_l], -1)
+            mine, lr = ok_l, piv_l
+        else:
+            win_idx, lu00 = _choose_pivots(comm, pivoting, colk, active, gri,
+                                           k, v, Px, own_y)
+            mine, lr = _find_local_rows(gri, win_idx)
+        pivots[k * v:(k + 1) * v] = win_idx
+        if fused and own_y:
+            # live rows take their multipliers, the winners their finished
+            # merged rows (carried out by the pivot-row psum below); rows
+            # dead before this step take zeros (uneliminated, their values
+            # would compound from step to step until a rebalance)
+            A[:, c0:c0 + v] = (torch.where(active[:, None], Mloc, 0.0)
+                               if pz == 0 else 0.0)
+        active &= ~(gri[:, None] == win_idx[None, :]).any(dim=1)
+
+        # -- steps 2+3: the raw pivot rows and their U12 correction ----------
+        raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0), ("x", "z"))
+        if fused:
+            lu00 = comm.psum(raw[:, c0:c0 + v] if own_y
+                             else raw.new_zeros((v, v)), "y")
+        rhs = raw[:, c0:]
+        if k > 0:
+            # the winners' L history in global column order
+            Lloc = raw[:, :nbf * v]
+            if gather_free:
+                Lmy = Lloc
+            else:
+                Lg = comm.all_gather(Lloc, "y")            # [Py, v, nbf*v]
+                Lg = Lg.reshape(Py, v, nbf, v).permute(1, 2, 0, 3)
+                Lg = Lg.reshape(v, nbf * Py * v)
+                if NB > nbf * Py:
+                    Lg = torch.nn.functional.pad(
+                        Lg, (0, (NB - nbf * Py) * v))
+                idxm = torch.arange(nmy, device=dev) * Px + pi
+                Lmy = Lg.reshape(v, NB, v)[:, idxm].reshape(v, nmy * v)
+            # my U rows of the live window; rows of unwritten steps are
+            # zero, and columns of tiles <= k are masked below
+            corr = comm.psum(schur_dot(Lmy, F[:nmy * v, c0:], precision),
+                             "x")
+            rhs = rhs - corr
+
+        # -- steps 4+5: TRSMs and the factor and panel writes ----------------
+        L00, U00 = _pivot_blocks(lu00)
+        Y = trsm_left_lower_unit(L00, rhs, method="invert")       # [v, nw]
+        if own_x and pz == 0:
+            F[r0f:r0f + v, :c0] = raw[:, :c0]
+            F[r0f:r0f + v, c0:] = torch.where(gt_col[None, c0:] > k, Y,
+                                              raw[:, c0:])
+            if own_y and not fused:
+                # (the fused panel's raw carries lu00 there already)
+                F[r0f:r0f + v, c0:c0 + v] = lu00
+        if not fused:
+            L10 = trsm_right_upper(colk, U00, method="invert")
+            if own_y:
+                A[:, c0:c0 + v] = (torch.where(active[:, None], L10, 0.0)
+                                   if pz == 0 else 0.0)
+
+        # -- row frontier ----------------------------------------------------
+        if rowpart and (k + 1) % rowpart == 0 and k + 1 < Nt:
+            Mlp = _row_frontier(desc.M, k + 1, v, Px)
+            if Mlp < mr:
+                A, active, gri = _rebalance_rows(comm, A, active, gri,
+                                                 desc.M, Mlp, Px)
 
     if desc.M > desc.N:
         F, pivots = _tall_tail(desc, comm, A, F, active, pivots, gri)
@@ -461,10 +664,11 @@ def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
     precision: the trailing-update mode ('highest', 'high', 'bf16'); the
     panel math and TRSMs stay IEEE fp32. unroll: None auto-selects
     (dispatch.choose_variant), True/False force 'unrolled'/'fori', or a
-    variant name (module docstring); 'crout' raises until it is ported.
+    variant name (module docstring).
     rowpart: the rebalance cadence of 'unrolled'/'lookahead' (None = Px,
-    0 = never); for 'windowed', None or any truthy value rebalances at
-    each window boundary and 0 disables. Rebalancing moves rows across
+    0 = never) and of 'crout' (None = crout_rowpart_default(Px, Nt), 0 =
+    never); for 'windowed', None or any truthy value rebalances at each
+    window boundary and 0 disables. Rebalancing moves rows across
     'x', which changes the tournament's candidate groups: CALU pivots
     depend on the tree by construction; 'full' and 'none' do not.
 
@@ -480,10 +684,7 @@ def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
 
         return _getrf_crout(G, desc.v, precision)
     if variant == "crout":
-        raise ConfluxError(
-            ErrorCode.INVALID_GRID,
-            "the left-looking LU rank program ('crout') is not ported to "
-            "PyTorch yet (ROADMAP item 9); use 'windowed' or 'unrolled'")
+        return _local_lu_25d_crout(desc, pivoting, precision, G, rowpart)
     return _local_lu_25d(
         desc, pivoting, precision, G,
         rebalance_after=_rebalance_steps(variant, desc.Nt, desc.grid.Px,

@@ -10,13 +10,18 @@ of two ranks of its own (`launch.run_ranks`: an op gloo does not take can
 abort the process), and prints what each one did: the evidence for which
 collectives `comm.Comm` stages through host memory on a gloo world.
 
---breakdown runs chip_smoke's distributed paths (plu and pcholesky at the
-auto variant, 'high', on a (2, 2, 2) grid of 8 gloo ranks on the card,
-chip_smoke's inputs) with every `Comm` collective timed on each rank, the
-card synchronised before and after it: per rank, the wall of each path
-and the seconds and calls of each collective; the rest of the wall is
-the rank's own work (its kernels, its host code, and waiting for the card
-that 8 processes share). --device cpu rehearses it on CPU ranks.
+--breakdown runs chip_smoke's distributed LU and Cholesky at N = 16384
+(lu_25d at the auto variant and 'crout', tournament, and cholesky_25d at
+the auto variant, 'high', on a (2, 2, 2) grid of 8 gloo ranks on the
+card, chip_smoke's inputs), each as distribute, the factorization and
+the gather to rank 0, then its SUMMA gate (`validation.lu_residual_dist`
+/ `cholesky_residual_dist`) on the distributed blocks, with every `Comm`
+collective timed on each rank, the card synchronised before and after
+it: per rank, the wall of each path and the seconds and calls of each
+collective, and the gate's own seconds and collectives apart; the rest
+of a wall is the rank's own work (its kernels, its host code, and
+waiting for the card that 8 processes share). --device cpu rehearses it
+on CPU ranks.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import argparse
 import subprocess
 
 OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
-       "reduce_scatter_tensor", "isend/irecv", "gather")
-COLLECTIVES = ("psum", "all_gather", "ppermute", "psum_scatter", "gather")
+       "reduce_scatter_tensor", "all_to_all_single", "isend/irecv", "gather")
+COLLECTIVES = ("psum", "all_gather", "ppermute", "psum_scatter", "gather",
+               "all_to_all")
+PATHS = ("lu_25d", "lu_25d crout", "cholesky_25d")
 
 
 def _op_rank(op: str, where: str):
@@ -55,6 +62,12 @@ def _op_rank(op: str, where: str):
         y = torch.empty(2, device=where)
         dist.reduce_scatter_tensor(y, x)
         got = y[0]
+    elif op == "all_to_all_single":
+        # uneven splits, as layout.retile sends them
+        y = torch.empty(4, device=where)
+        splits = [1, 3] if r == 0 else [3, 1]
+        dist.all_to_all_single(y, x, splits, splits)
+        got = y[-1]
     elif op == "isend/irecv":
         y = torch.empty(4, device=where)
         for w in (dist.isend(x, 1 - r), dist.irecv(y, 1 - r)):
@@ -85,17 +98,22 @@ def probe_ops(where: str) -> dict:
 
 def _breakdown_rank(n: int, v: int, device: str):
     """One rank of the breakdown: each path's wall and its collectives'
-    seconds and calls by kind, with the card synchronised around each."""
+    seconds and calls by kind, then its gate's, with the card
+    synchronised around each."""
     import time
 
     import torch
     import torch.distributed as dist
 
-    from chip_smoke import DIST_GRID
+    from chip_smoke import DIST_GRID, _dist_inputs
     from conflux_tpu_torch import comm
-    from conflux_tpu_torch.cholesky.p25d import pcholesky
+    from conflux_tpu_torch.cholesky.p25d import cholesky_25d
     from conflux_tpu_torch.grid import make_grid
-    from conflux_tpu_torch.lu.p25d import plu
+    from conflux_tpu_torch.layout import BlockCyclic, distribute, \
+        undistribute
+    from conflux_tpu_torch.lu.p25d import lu_25d
+    from conflux_tpu_torch.validation import cholesky_residual_dist, \
+        lu_residual_dist
 
     def sync():
         if device == "cuda":
@@ -117,25 +135,36 @@ def _breakdown_rank(n: int, v: int, device: str):
     for name in COLLECTIVES:
         setattr(comm.Comm, name, timed(name, getattr(comm.Comm, name)))
     grid = make_grid(DIST_GRID, device=device)
-    g = torch.Generator(device=device).manual_seed(42)
-    A = 5.0 + torch.rand(n, n, generator=g, device=device)
-    g = torch.Generator(device=device).manual_seed(43)
-    S = torch.rand(n, n, generator=g, device=device)
-    S = S + S.T
-    S.mul_(0.5)
-    S.diagonal().add_(float(n))
+    A, S = _dist_inputs(n, device)
+    desc = BlockCyclic.create(n, n, v, grid)
     out = {}
-    for path in ("lu_25d", "cholesky_25d"):
+    for path in PATHS:
         sync()
         dist.barrier()
         spent.clear()
         t0 = time.perf_counter()
-        if path == "lu_25d":
-            plu(A, grid, v, "tournament", "high")
+        if path == "cholesky_25d":
+            G = distribute(S, desc)
+            F, perm = cholesky_25d(G, desc, "high"), None
         else:
-            pcholesky(S, grid, v, "high")
+            G = distribute(A, desc)
+            F, perm = lu_25d(G, desc, "tournament", "high",
+                             "crout" if path.endswith("crout") else None)
+        undistribute(F, desc)
         sync()
-        out[path] = {"wall": time.perf_counter() - t0, "spent": dict(spent)}
+        wall = time.perf_counter() - t0
+        factor = dict(spent)
+        spent.clear()
+        t0 = time.perf_counter()
+        if perm is None:
+            cholesky_residual_dist(G, F, desc)
+        else:
+            lu_residual_dist(G, F, perm, desc)
+        sync()
+        out[path] = {"wall": wall, "spent": factor,
+                     "gate": time.perf_counter() - t0,
+                     "gate_spent": dict(spent)}
+        del G, F, perm
     return out
 
 
@@ -146,16 +175,22 @@ def breakdown(n: int, v: int, device: str, smi: str):
     P = DIST_GRID[0] * DIST_GRID[1] * DIST_GRID[2]
     ranks = run_ranks(P, _breakdown_rank, n, v, device, backend="gloo",
                       device=device, timeout=900)
-    for path in ("lu_25d", "cholesky_25d"):
+
+    def ops(spent):
+        return ", ".join(f"{k} {s:.3f} ({c})"
+                         for k, (s, c) in sorted(spent.items()))
+
+    for path in PATHS:
         print(f"{path} {'x'.join(map(str, DIST_GRID))} N={n} v={v} 'high', "
               f"{P} gloo ranks on {device} ({smi}); seconds per rank:")
         for r, res in enumerate(ranks):
             e = res[path]
             comm_s = sum(s for s, _ in e["spent"].values())
-            ops = ", ".join(f"{k} {s:.3f} ({c})"
-                            for k, (s, c) in sorted(e["spent"].items()))
+            gate_s = sum(s for s, _ in e["gate_spent"].values())
             print(f"  rank {r}: wall {e['wall']:.3f}, collectives "
-                  f"{comm_s:.3f} [{ops}], own work {e['wall'] - comm_s:.3f}")
+                  f"{comm_s:.3f} [{ops(e['spent'])}], own work "
+                  f"{e['wall'] - comm_s:.3f}; SUMMA gate {e['gate']:.3f}, "
+                  f"its collectives {gate_s:.3f} [{ops(e['gate_spent'])}]")
 
 
 def main() -> int:

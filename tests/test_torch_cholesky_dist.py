@@ -72,7 +72,7 @@ def port():
                      for i, c in enumerate(CASES[shape])]
             worlds[shape] = run_ranks(int(np.prod(shape)),
                                       torch_ranks.cholesky_cases, shape,
-                                      cases, timeout=300)
+                                      cases, device="cpu", timeout=300)
         return worlds[shape]
 
     return get

@@ -17,8 +17,9 @@ The records are turned into ring volumes (elements moved, summed over all
 ranks; tests/test_spec_comm.py's convention: a psum of E elements over g
 ranks moves 2 E (g - 1) per group, an all_gather E (g - 1) g, a tiled
 psum_scatter E (g - 1), a ppermute E per pair) and held, class by class,
-to the JAX package's communication model: the LU's to
-`conflux_tpu.spec.tournament_lu_np`'s CommVolume exactly; the Cholesky's
+to the communication model, in the port's copy (conflux_tpu_torch/spec.py,
+held to `conflux_tpu.spec` bit for bit by tests/test_torch_dist_rest.py):
+the LU's to `tournament_lu_np`'s CommVolume exactly; the Cholesky's
 right-looking program to the closed forms of
 tests/test_spec_comm.py:352 with each step's live window (the port slices
 rows [r0:] at every step, as JAX's unrolled variant does), its crout
@@ -35,9 +36,10 @@ from jax.sharding import PartitionSpec as P
 
 import torch_ranks
 from conflux_tpu.grid import make_grid as jmake_grid
-from conflux_tpu.spec import model_cholesky_comm_volume, tournament_lu_np
 from conflux_tpu_torch.comm import SUBSETS, coords_of, rank_of
 from conflux_tpu_torch.launch import run_ranks
+from conflux_tpu_torch.spec import model_cholesky_comm_volume, \
+    tournament_lu_np
 
 SHAPE = (2, 2, 2)
 SIZES = dict(zip("xyz", SHAPE))
@@ -66,7 +68,7 @@ def _spd_input():
 def world():
     return run_ranks(8, torch_ranks.comm_world, SHAPE, (_slices(), PAIRS),
                      (_lu_input(), _spd_input(), V, LU_RUNS, CHOL_VARIANTS),
-                     timeout=300)
+                     device="cpu", timeout=300)
 
 
 def _jax_collective(fn):
@@ -224,7 +226,7 @@ def test_cholesky_crout_volumes_match_model(world):
 
 def test_run_ranks_names_the_failing_rank():
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed") as e:
-        run_ranks(2, torch_ranks.fail_on_rank, 1, timeout=120)
+        run_ranks(2, torch_ranks.fail_on_rank, 1, device="cpu", timeout=120)
     assert "fails on purpose" in str(e.value)
 
 
@@ -232,4 +234,4 @@ def test_run_ranks_times_out():
     # the timeout also bounds the ranks' rendezvous: it leaves room for two
     # processes to start on a loaded machine
     with pytest.raises(TimeoutError, match=r"ranks \[1\] of 2"):
-        run_ranks(2, torch_ranks.outlive, 600, timeout=60)
+        run_ranks(2, torch_ranks.outlive, 600, device="cpu", timeout=60)

@@ -668,6 +668,17 @@ def _entry_results(A, S, b):
     return out
 
 
+def test_run_ranks_puts_each_rank_on_its_card(card):
+    # run_ranks' default device is the card: each rank's bare "cuda"
+    # tensors land on the card make_grid places the rank on
+    import torch_ranks
+    from conflux_tpu_torch.launch import run_ranks
+
+    for r in run_ranks(2, torch_ranks.rank_devices, timeout=300):
+        want = f"cuda:{r['rank'] % r['count']}"
+        assert r["bare"] == r["grid"] == want
+
+
 @pytest.mark.parametrize("api", ["legacy", "new"])
 def test_tf32_on_leaves_results_bit_identical(card, api):
     # the caller turns TF32 on; the entry points pin IEEE fp32 for their

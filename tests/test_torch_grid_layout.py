@@ -52,7 +52,7 @@ def port():
                     enumerate(MATS[shape])]
             worlds[shape] = run_ranks(int(np.prod(shape)),
                                       torch_ranks.layout_cases, shape, mats,
-                                      timeout=300)
+                                      device="cpu", timeout=300)
         return worlds[shape]
 
     return get

@@ -96,7 +96,7 @@ def port():
                      for i, c in enumerate(CASES[shape])]
             worlds[shape] = run_ranks(int(np.prod(shape)),
                                       torch_ranks.lu_cases, shape, cases,
-                                      timeout=300)
+                                      device="cpu", timeout=300)
         return worlds[shape]
 
     return get
@@ -172,14 +172,3 @@ def test_lu_25d_other_dtypes_raise(dtype):
     desc = BlockCyclic.create(16, 16, 8, make_grid((1, 1, 1), device="cpu"))
     with pytest.raises(ConfluxError, match="ROADMAP item 7"):
         lu_25d(torch.zeros(16, 16, dtype=dtype), desc)
-
-
-def test_lu_25d_crout_raises_until_ported():
-    from types import SimpleNamespace
-
-    from conflux_tpu_torch.lu.p25d import lu_25d
-
-    grid = SimpleNamespace(Px=2, Py=2, Pz=1, P=4, idle=False)
-    desc = SimpleNamespace(grid=grid, M=32, N=32, Ml=16, Nl=16, v=8, Nt=4)
-    with pytest.raises(ConfluxError, match="ROADMAP item 9"):
-        lu_25d(torch.zeros(16, 16), desc, unroll="crout")

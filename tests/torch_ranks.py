@@ -2,8 +2,9 @@
 
 `launch.run_ranks` runs each function below in every process of a gloo
 world, on the CPU; the test files (test_torch_grid_layout.py,
-test_torch_comm.py, test_torch_lu_dist.py, test_torch_cholesky_dist.py)
-hold the results to the JAX package, which runs in the parent only. This
+test_torch_comm.py, test_torch_lu_dist.py, test_torch_cholesky_dist.py,
+test_torch_lu_crout.py, test_torch_dist_rest.py) hold the results to the
+JAX package, which runs in the parent only. This
 module imports torch, numpy and conflux_tpu_torch, never jax: each
 function reports whether jax reached its process.
 """
@@ -16,11 +17,25 @@ import warnings
 
 import torch
 
+from conflux_tpu_torch import profiler
 from conflux_tpu_torch.cholesky.p25d import cholesky_25d, pcholesky
+from conflux_tpu_torch.cholesky.profiled import cholesky_25d_profiled
 from conflux_tpu_torch.comm import SUBSETS
 from conflux_tpu_torch.grid import make_grid
-from conflux_tpu_torch.layout import BlockCyclic, distribute, undistribute
+from conflux_tpu_torch.layout import (
+    BlockCyclic,
+    distribute,
+    redistribute,
+    retile,
+    undistribute,
+)
 from conflux_tpu_torch.lu.p25d import lu_25d, plu
+from conflux_tpu_torch.lu.profiled import lu_25d_profiled
+from conflux_tpu_torch.pgemm import pchol_residual_25d, pgemm, \
+    plu_residual_25d
+from conflux_tpu_torch.scalapack import pdgetrf, pdpotrf
+from conflux_tpu_torch.validation import cholesky_residual_dist, \
+    lu_residual_dist
 
 
 def _jax_free():
@@ -169,7 +184,159 @@ def outlive(seconds: float):
     return dist.get_rank()
 
 
+def rank_devices():
+    """Where a rank's bare "cuda" tensor lands, beside the card
+    `make_grid` gives the rank: run_ranks' default device is the card."""
+    import torch.distributed as dist
+
+    grid = make_grid((dist.get_world_size(), 1, 1))
+    return {"rank": dist.get_rank(), "count": torch.cuda.device_count(),
+            "bare": str(torch.zeros(1, device="cuda").device),
+            "grid": str(grid.device)}
+
+
 def comm_world(shape, comm_args, volume_args):
     """`comm_cases` and `comm_volume_cases` in one world."""
     return {"comm": comm_cases(shape, *comm_args),
             "volume": comm_volume_cases(shape, *volume_args)}
+
+
+def _grids():
+    """make_grid by shape, each grid made once: every rank creates the
+    same grids in the same order, so their groups match."""
+    grids = {}
+
+    def get(shape):
+        if shape not in grids:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")      # idle ranks
+                grids[shape] = make_grid(shape, device="cpu")
+        return grids[shape]
+
+    return get
+
+
+def crout_cases(cases):
+    """The LU of each case dict (shape, A, v, pivoting, variant, rowpart)
+    at 'highest' through `distribute`, `lu_25d` and `undistribute`, each
+    on its grid of this world. Returns rank 0's dense factor, every
+    rank's pivot vector and every rank's record of the factorization's
+    collectives."""
+    grid_of = _grids()
+    out = []
+    for c in cases:
+        grid = grid_of(c["shape"])
+        A = c["A"]
+        desc = BlockCyclic.create(A.shape[0], A.shape[1], c["v"], grid)
+        G = distribute(A, desc)
+        grid.comm.record.clear()
+        F, perm = lu_25d(G, desc, c["pivoting"], "highest", c["variant"],
+                         rowpart=c["rowpart"])
+        records = list(grid.comm.record)
+        out.append({"F": _numpy(undistribute(F, desc)),
+                    "perm": _numpy(perm), "records": records})
+    return {"cases": out, "jax_free": _jax_free()}
+
+
+def _blocks_to_rank0(comm, t):
+    """Every rank's block (None on an idle rank: the grid's ranks only),
+    gathered to rank 0 in grid-rank order."""
+    return None if t is None else _numpy(comm.gather(t, 0))
+
+
+def dist_rest_cases(cfg):
+    """pgemm, the SUMMA residual gates, retile / redistribute, pdgetrf /
+    pdpotrf and the profiled rank programs, each on its grid of this
+    world (cfg: the inputs per part; test_torch_dist_rest.py)."""
+    grid_of = _grids()
+    out = {}
+
+    # pgemm: rank 0's dense C per grid shape
+    A, B, v = cfg["pgemm"]
+    for shape in cfg["pgemm_shapes"]:
+        grid = grid_of(shape)
+        desc = BlockCyclic.create(A.shape[0], A.shape[1], v, grid)
+        C = pgemm(distribute(A, desc), distribute(B, desc), desc)
+        out[("pgemm", shape)] = _numpy(undistribute(C, desc))
+
+    # the distributed gates on each rank beside rank 0's gathered factor
+    for i, (shape, A, v) in enumerate(cfg["lu_gates"]):
+        grid = grid_of(shape)
+        m, n = A.shape
+        desc = BlockCyclic.create(m, n, v, grid)
+        G = distribute(A, desc)
+        F, perm = lu_25d(G, desc, "tournament", "highest")
+        res = (lu_residual_dist(G, F, perm, desc) if (m, n) == (desc.M,
+                                                              desc.N)
+               else plu_residual_25d(G, F, perm, desc, n_true=n, m_true=m))
+        out[("lu_gate", i)] = {"res": res, "perm": _numpy(perm),
+                               "F": _numpy(undistribute(F, desc))}
+    for i, (shape, S, v) in enumerate(cfg["chol_gates"]):
+        grid = grid_of(shape)
+        n = S.shape[0]
+        desc = BlockCyclic.create(n, n, v, grid)
+        G = distribute(S, desc)
+        L = cholesky_25d(G, desc, "highest")
+        res = (cholesky_residual_dist(G, L, desc) if n == desc.N
+               else pchol_residual_25d(G, L, desc, n_true=n))
+        out[("chol_gate", i)] = {"res": res,
+                                 "L": _numpy(undistribute(L, desc))}
+
+    # retile / redistribute: every rank's destination block on rank 0
+    A, moves = cfg["retile"]
+    for i, (s_shape, s_v, d_shape, d_v) in enumerate(moves):
+        src = BlockCyclic.create(A.shape[0], A.shape[1], s_v,
+                                 grid_of(s_shape))
+        dst = BlockCyclic.create(A.shape[0], A.shape[1], d_v,
+                                 grid_of(d_shape))
+        move = retile if s_shape == d_shape else redistribute
+        G2 = move(distribute(A, src), src, dst)
+        back = retile(G2, dst, src)
+        out[("retile", i)] = {
+            "blocks": _blocks_to_rank0(dst.grid.comm, G2),
+            "back_equal": None if back is None
+            else bool(torch.equal(back, distribute(A, src)))}
+
+    # the ScaLAPACK-style entry points at their default tile
+    A, S, shape = cfg["scalapack"]
+    grid = grid_of(shape)
+    f = pdgetrf(A, grid)
+    ch = pdpotrf(S, grid)
+    dense_f, dense_l = f.dense(), ch.dense()
+    out["pdgetrf"] = {"v": f.desc.v, "F": _numpy(dense_f),
+                      "perm": _numpy(f.perm),
+                      "ipiv": f.ipiv() if dense_f is not None else None}
+    out["pdpotrf"] = {"v": ch.desc.v, "L": _numpy(dense_l)}
+
+    # the profiled rank programs: the same bits as the unprofiled ones,
+    # and the region table of each
+    A, S, v = cfg["profiled"]
+    for shape in cfg["profiled_shapes"]:
+        grid = grid_of(shape)
+        n = A.shape[0]
+        desc = BlockCyclic.create(n, n, v, grid)
+        G, GS = distribute(A, desc), distribute(S, desc)
+        profiler.enable(True)
+        try:
+            tables = {}
+            profiler.PC()
+            F1, p1 = lu_25d_profiled(G, desc, "tournament", "highest")
+            tables["lu"] = {k: (c.calls, c.wall) for k, c in
+                            profiler._GLOBAL.root.children.items()}
+            profiler.PC()
+            L1 = cholesky_25d_profiled(GS, desc, "highest")
+            tables["cholesky"] = {k: (c.calls, c.wall) for k, c in
+                                  profiler._GLOBAL.root.children.items()}
+            report = profiler._GLOBAL.report()
+        finally:
+            profiler.enable(False)
+            profiler.PC()
+        F2, p2 = lu_25d(G, desc, "tournament", "highest", unroll=False)
+        L2 = cholesky_25d(GS, desc, "highest", unroll=False)
+        same = (None if F1 is None else
+                bool(torch.equal(F1, F2) and torch.equal(p1, p2)
+                     and torch.equal(L1, L2)))
+        out[("profiled", shape)] = {"tables": tables, "same": same,
+                                    "report": report, "Nt": desc.Nt}
+    out["jax_free"] = _jax_free()
+    return out
