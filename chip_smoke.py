@@ -8,10 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: a CUDA card is required; print its name and power limit, the
      torch version, and assert that fp32 matrix products stay IEEE fp32;
   2. build: build (or load) every kernel from csrc/, one nvcc per source,
-     started together: K1, the rank-1 panel kernel (rank1_panel.cu); K3,
-     the fused trailing update (schur_update.cu); K2, the big-K R - A@B,
-     and K4, the plain GEMM (bigk_gemm.cu); K5 and K6, the row scatter and
-     gather (row_move.cu);
+     started together: K1, the rank-1 panel kernel (rank1_panel.cu), and
+     K1 in double (rank1_panel_f64.cu); K3, the fused trailing update
+     (schur_update.cu); K2, the big-K R - A@B with its bf16-operand
+     entry, and K4, the plain GEMM (bigk_gemm.cu); K5 and K6, the row
+     scatter and gather (row_move.cu);
   3. K1 vs plain: K1 against its plain PyTorch version on the same CUDA
      inputs, in unforced, forced and finish modes, at the main path's
      block shapes plus a ragged one with a masked lane, forced at the
@@ -19,7 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      first pivots j0 > 0 (the tile route), and at the cluster route's
      widest block and 128 lanes more (the grid route) at w = 128 and 64
      in all three modes (forced ones on the tile route); every call
-     checked against the route counter it must move;
+     checked against the route counter it must move; then K1 in double
+     against the same plain version in f64 and cuSOLVER's f64 LU at the
+     f64 crout path's [128, 32768] finish block, a [128, 2048] block and
+     a forced [128, 1536] tile, each on its own counter;
   4. K3 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
      SYNCS instructions; then K3 against its plain PyTorch version on the
      same CUDA inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's
@@ -33,7 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      transposed view) and a ragged shape, with TFLOP/s; each call checked
      against its route counter (split pass + wgmma), R never written, a
      repeated call bit-identical; the split pass's time at the two largest
-     calls beside the whole call's;
+     calls beside the whole call's; then K2's bf16-operand entry against
+     its plain version and torch.mm(out_dtype=float32) in 'bf16' and
+     'bf16out' at the bf16 crout and Cholesky paths' first and last panel
+     updates;
   6. K4 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
      SYNCS instructions (cuobjdump); then K4 against its plain version at
      experiments/prof_pallas_gemm.py's shapes on each route, checked by
@@ -56,8 +63,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      factorization, peak device memory, and the blocked residual;
  10. flat path: the same with scheme='flat';
  11. Cholesky path: cholesky(A, v=1536, precision='high') at N=32768;
- 12. swap and split paths: crout with compaction='swap' and 'split'.
- 13. dist: the 2.5D rank programs, 8 ranks of one gloo world on this one
+ 12. swap and split paths: crout with compaction='swap' and 'split';
+ 13. dtypes: bf16 storage crout 'gather', flat and Cholesky, float64
+     crout and Cholesky at N=32768 v=1536 (the main paths' inputs, rounded
+     to bf16 or made in f64), and complex64 clu_factor at N=16384 (cut
+     from 32768: its panel is the JAX package's per-column loop, eager,
+     with no kernel in either package): each one warm-up and REPS timed
+     runs, its launches per kernel and route held to DTYPE_PATHS, its peak
+     memory, and the JAX package's gate for that dtype;
+ 14. dist: the 2.5D rank programs, 8 ranks of one gloo world on this one
      card (kernels built in this process first, so the ranks only load
      them), in 'high' at N = 16384, v = 512 on a (2, 2, 2) grid: lu_25d
      at the auto variant ('windowed') and the left-looking 'crout', both
@@ -65,7 +79,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      LU on a (1, 2, 4) grid (the fused panel) and the profiled LU
      (lu_25d_profiled) beside its unprofiled twin (lu_25d(unroll=False)),
      both at N = 8192 on (2, 2, 2); pdgetrf and pdpotrf at their default
-     grid, tile and variant, 'highest', N = 8192. Each run's launch counts
+     grid, tile and variant, 'highest', N = 8192; and at N = 8192,
+     v = 256 on (2, 2, 2), lu_25d 'windowed' and 'crout' and cholesky_25d
+     (auto variant) under bf16 storage and in float64, and complex64
+     clu_25d, each gated by the JAX package's bound for its dtype. Each run's launch counts
      are reset just before its factorization and read just after, K1's per
      route and K3's held on every rank to the counts derived from the step
      loops (`dist_k1_blocks`); each is gated on every rank by the SUMMA
@@ -142,7 +159,8 @@ K6_SWAP = 2 * STEPS + (STEPS - 1)
 # Lbuf[live_idx]
 K6_SPLIT = 2 * STEPS + (STEPS - 1) + (STEPS - 1) + (STEPS - 1) + (STEPS - 2)
 KERNELS = ("rank1_panel", "schur_update", "sub_matmul_bigk", "matmul",
-           "scatter_rows", "gather_rows")
+           "scatter_rows", "gather_rows", "rank1_panel_f64",
+           "sub_matmul_bigk_bf16")
 # launches per factorization of each path; a kernel left out runs 0 times
 PATH_LAUNCHES = {
     "crout": {"rank1_panel": K1_CROUT, "sub_matmul_bigk": K2_COMPACT},
@@ -154,6 +172,38 @@ PATH_LAUNCHES = {
     "split": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
               "gather_rows": K6_SPLIT},
 }
+# the dtype paths of the dtypes phase, each with the path whose K1 blocks
+# it runs: bf16 storage (K1 in f32 on the upcast panels; crout's big-K
+# products on K2's bf16-operand entry, flat's trailing update K3 in
+# 'bf16out'; crout keeps merged=True, so it refactors the pivot rows as
+# flat does), float64 (K1 in double; every product an IEEE f64 torch.mm)
+# and complex64 (no kernel in either package: the panel is an eager
+# per-column loop, the products real torch.mm). Cholesky under bf16
+# storage keeps the library's bf16 pass: K2's bf16-operand entry was
+# slower than torch.mm(out_dtype=float32) at the path's first and last
+# step shapes on the H100 (phase_k2_bf16, cholesky/single.py).
+DTYPE_PATHS = {
+    "bf16 crout": ("flat", {"rank1_panel": K1_FLAT,
+                            "sub_matmul_bigk_bf16": K2_COMPACT}),
+    "bf16 flat": ("flat", {"rank1_panel": K1_FLAT, "schur_update": K3_FLAT}),
+    "bf16 cholesky": ("cholesky", {"rank1_panel": K1_CHOLESKY}),
+    "f64 crout": ("crout", {"rank1_panel_f64": K1_CROUT}),
+    "f64 cholesky": ("cholesky", {"rank1_panel_f64": K1_CHOLESKY}),
+    "c64 clu": (None, {}),
+}
+# the complex LU runs at N cut to half: its panel is the JAX package's
+# per-column loop, eager here, ~N * (v / 2) column steps per factorization
+C64_N = N // 2
+# the gates of the dtype paths (the JAX package's own bounds): bf16 LU
+# ||PA - LU||_F / ||A||_F (tests/test_single_device.py:271-290, here
+# times 1/N: the blocked gate's normalisation), bf16 Cholesky 2e-4
+# (tests/test_cholesky_dist.py:217), f64 1e-14 (tests/test_f64_mode.py),
+# c64 1e-6 (tests/test_complex.py:100)
+DTYPE_GATES = {"bf16 crout": 0.05 / N, "bf16 flat": 0.05 / N,
+               "bf16 cholesky": 2e-4, "f64 crout": 1e-14,
+               "f64 cholesky": 1e-14, "c64 clu": 1e-6}
+
+
 def k1_blocks(path: str):
     """(w, m, forced) of every K1 block of one N, V factorization of
     `path`, from its step loop: step k factors a panel of w = min(V, N - k)
@@ -191,10 +241,12 @@ def k1_route_launches(route) -> dict:
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense) for the
-# bound_ms of each kernel: device memory, bf16 tensor cores, fp32 FMA
+# bound_ms of each kernel: device memory, bf16 tensor cores, fp32 FMA,
+# fp64 outside the tensor cores (K1 in double does no matrix products)
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 FP32_FLOP_S = 67e12
+FP64_FLOP_S = 34e12
 RESIDUAL_GATE = 1e-6
 # K1 applies the rank-1 updates in another order than its two-level plain
 # version, so the two agree to a few fp32 roundings, not bit for bit
@@ -233,6 +285,20 @@ K2_SHAPES = (("panel k=1536", 31232, 1536, 1536, False),
 # the calls whose split pass is timed beside the whole call ('high'): the
 # largest A and the largest B of the crout path
 K2_SPLIT_TIMED = ("panel k=15360", "refresh k=15360")
+# K1 in double (w, m, mode, j0): the f64 crout path's first block (finish,
+# the grid route's global-memory slab), a block of the last panels and a
+# forced pivot-row tile, held to its plain version within a few f64
+# roundings of max|ref|
+K1_F64_SHAPES = ((128, 32768, "finish", 0), (128, 2048, "unforced", 0),
+                 (128, 1536, "forced", 128))
+K1_F64_TOL = 1e-12
+# K2's bf16-operand entry (tag, m, k, n, B transposed): the bf16 crout
+# path's first and last panel updates, and the bf16 Cholesky path's (B the
+# transposed view F[k:k+w, :k].T, copied by the wrapper first)
+K2_BF16_SHAPES = (("crout panel k=1536", N - V, V, V, False),
+                  ("crout panel k=32256", N % V, N - N % V, N % V, False),
+                  ("Cholesky k=1536", N - V, V, V, True),
+                  ("Cholesky k=32256", N % V, N - N % V, N % V, True))
 # K4 (m, k, n): experiments/prof_pallas_gemm.py's shapes; the gate is K3's
 K4_SHAPES = ((16384, 512, 16384), (8192, 1024, 8192), (8192, 8192, 8192))
 # K5/K6: swap's push-up of V rows into an [N, N] R, and the gathers of V
@@ -337,7 +403,8 @@ def phase_device():
     return smi
 
 
-SOURCES = ("rank1_panel", "schur_update", "bigk_gemm", "row_move")
+SOURCES = ("rank1_panel", "schur_update", "bigk_gemm", "row_move",
+           "rank1_panel_f64")
 
 
 def phase_build():
@@ -347,6 +414,7 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build(SOURCES)
     cuda_panel._load()
+    cuda_panel._load_f64()
     cuda_gemm._load()
     cuda_gemm._load_bigk()
     cuda_scatter._load()
@@ -455,6 +523,153 @@ def phase_k1():
                      "max_abs_err": diff, "ms": t_k, "plain_ms": t_p,
                      "library_ms": t_l, "bound_ms": bound[0],
                      "bound_by": bound[1]})
+    return rows
+
+
+def phase_k1_f64():
+    """K1 in double against its plain version (the same `_rank1_block_t`,
+    in f64) and against cuSOLVER's f64 LU of the same block."""
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_panel
+    from conflux_tpu_torch.ops.panel import _rank1_block_t
+    from conflux_tpu_torch.timing import per_call_ms
+
+    rows = []
+    for i, (w, m, mode, j0) in enumerate(K1_F64_SHAPES):
+        rng = np.random.default_rng(9500 + i)
+        A = rng.standard_normal((w, m))
+        forced, finish = mode == "forced", mode == "finish"
+        if forced:
+            A[np.arange(w), j0 + np.arange(w)] += w
+        avail = np.ones((1, m))
+        avail[0, :j0] = 0.0
+        Mt = torch.from_numpy(A).cuda()
+        av = torch.from_numpy(avail).cuda()
+
+        def plain():
+            return _rank1_block_t(Mt, av, j0, forced, finish)
+
+        def kernel():
+            return cuda_panel.rank1_block_t_f64(Mt, av, forced, j0, finish)
+
+        ref = plain()
+        before = (cuda_panel.LAUNCHES, cuda_panel.LAUNCHES_F64)
+        got = kernel()
+        torch.cuda.synchronize()
+        moved = (cuda_panel.LAUNCHES - before[0],
+                 cuda_panel.LAUNCHES_F64 - before[1])
+        if moved != (0, 1):
+            fail(f"K1 f64 [{w}, {m}] {mode}: counters moved {moved}")
+        piv_ok = torch.equal(ref[2], got[2].long())
+        ok_ok = torch.equal(ref[3], got[3] > 0)
+        av_ok = torch.equal(ref[1], got[1])
+        keep = torch.ones(m, dtype=torch.bool, device="cuda")
+        if mode == "unforced":
+            keep[ref[2]] = False      # stale in the plain version, unread
+        diff = float((ref[0] - got[0])[:, keep].abs().max())
+        scale = float(ref[0][:, keep].abs().max())
+        t_k = per_call_ms(kernel)
+        t_p = per_call_ms(plain)
+        t_l = None if forced else per_call_ms(_cusolver_lu, Mt.T)
+        bound = _bound(1.0 * w * (w - 1) * m + w * m,
+                       8.0 * (2 * w * m + 2 * m) + 8.0 * w, FP64_FLOP_S)
+        tag = f"K1 f64 [{w}, {m}] {mode} j0={j0} (grid route in double)"
+        lib = "none" if t_l is None else f"{t_l:.4f} ms"
+        print(f"{tag}: pivots equal {piv_ok}, ok equal {ok_ok}, avail equal "
+              f"{av_ok}, max|diff| {diff:.3e} (rel {diff / scale:.3e}), "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"torch.linalg.lu_factor f64 (cuSOLVER) {lib}, bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        if not (piv_ok and ok_ok and av_ok):
+            fail(f"{tag}: pivots/ok/avail disagree")
+        if not diff <= K1_F64_TOL * scale:
+            fail(f"{tag}: max|diff| {diff} > {K1_F64_TOL} * {scale}")
+        rows.append({"shape": (w, m), "mode": mode, "max_abs_err": diff,
+                     "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+        del Mt, av, ref, got
+    return rows
+
+
+def phase_k2_bf16():
+    """K2's bf16-operand entry against its plain version (R - schur_dot(A,
+    B, 'bf16'), rounded once into R's type) and against the library's bf16
+    product torch.mm(A, B, out_dtype=float32), in 'bf16' and 'bf16out'."""
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_gemm
+    from conflux_tpu_torch.ops.gemm import _sub_matmul_bigk_t
+    from conflux_tpu_torch.timing import per_call_ms
+
+    rows = []
+    for si, (tag, m, k, n, bt) in enumerate(K2_BF16_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(950 + si)
+        A = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        B = (torch.randn(n, k, generator=g, device="cuda")
+             .to(torch.bfloat16).T if bt else
+             torch.randn(k, n, generator=g, device="cuda")
+             .to(torch.bfloat16))
+        R32 = torch.randn(m, n, generator=g, device="cuda")
+        scale = float(torch.mm(A.float().abs(), B.float().abs()).max())
+        t_l = per_call_ms(lambda: torch.mm(A, B, out_dtype=torch.float32))
+        for mode in ("bf16", "bf16out"):
+            R = R32.to(torch.bfloat16) if mode == "bf16out" else R32
+            R0 = R.clone()
+            ref = _sub_matmul_bigk_t(R, A, B, mode)
+            before = (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
+                      cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES)
+            got = cuda_gemm.sub_matmul_bigk_bf16(R, A, B, mode)
+            torch.cuda.synchronize()
+            moved = (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES - before[0],
+                     cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES - before[1])
+            if moved != (0, 1):
+                fail(f"K2 bf16 {tag} {mode}: counters moved {moved}")
+            if not torch.equal(R, R0):
+                fail(f"K2 bf16 {tag} {mode}: R was written")
+            if not torch.equal(got, cuda_gemm.sub_matmul_bigk_bf16(R, A, B,
+                                                                   mode)):
+                fail(f"K2 bf16 {tag} {mode}: a repeated call gave other "
+                     "bits")
+            d = (got.float() - ref.float()).abs()
+            diff = float(d.max())
+            if mode == "bf16out":
+                bad = int((d > _bf16_ulp(ref) + K3_TOL * scale).sum())
+                check = f"{bad} over 1 bf16 ulp + {K3_TOL:.0e} * max(|A|@|B|)"
+                good = bad == 0
+            else:
+                check = (f"rel to max(|A|@|B|) {diff / scale:.3e} (gate "
+                         f"{K3_TOL:.0e})")
+                good = diff <= K3_TOL * scale
+            del d
+            t_k = per_call_ms(cuda_gemm.sub_matmul_bigk_bf16, R, A, B, mode)
+            t_p = per_call_ms(_sub_matmul_bigk_t, R, A, B, mode)
+            bound = _bound(2.0 * m * n * k,
+                           2.0 * R.element_size() * m * n
+                           + 2.0 * (m * k + k * n), BF16_FLOP_S)
+            tflops = 2.0 * m * n * k / (t_k * 1e-3) / 1e12
+            print(f"K2 bf16 operands {tag} R [{m}, {n}] k {k}"
+                  f"{' (B transposed: copied first)' if bt else ''} "
+                  f"{mode:7s}: max|diff| {diff:.3e}, {check}, repeat "
+                  f"bit-identical, kernel {t_k:.4f} ms ({tflops:.1f} "
+                  f"TFLOP/s), plain {t_p:.4f} ms, torch.mm(out_dtype="
+                  f"float32) {t_l:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})")
+            if not good:
+                fail(f"K2 bf16 {tag} {mode}: kernel and plain disagree "
+                     f"({check})")
+            rows.append({"shape": tag, "mode": mode, "max_abs_err": diff,
+                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
+            del ref, got, R, R0
+        del A, B, R32
+        torch.cuda.empty_cache()
+    chol = [r for r in rows if r["shape"].startswith("Cholesky")
+            and r["mode"] == "bf16"]
+    print("K2 bf16 operands at the bf16 Cholesky path's first and last "
+          "steps: kernel " + ", ".join(f"{r['ms']:.4f}" for r in chol)
+          + " ms, torch.mm(out_dtype=float32) "
+          + ", ".join(f"{r['library_ms']:.4f}" for r in chol) + " ms")
     return rows
 
 
@@ -1034,6 +1249,9 @@ def _counters():
             "matmul": (cuda_gemm, "MATMUL_LAUNCHES"),
             "scatter_rows": (cuda_scatter, "SCATTER_ROWS_LAUNCHES"),
             "gather_rows": (cuda_scatter, "GATHER_ROWS_LAUNCHES"),
+            "rank1_panel_f64": (cuda_panel, "LAUNCHES_F64"),
+            "sub_matmul_bigk_bf16": (cuda_gemm,
+                                     "SUB_MATMUL_BIGK_BF16_LAUNCHES"),
             # routes, counted apart
             "rank1_panel cluster": (cuda_panel, "LAUNCHES_CLUSTER"),
             "rank1_panel grid": (cuda_panel, "LAUNCHES_GRID"),
@@ -1077,11 +1295,19 @@ def _timed_path(fn, *args):
 
 
 def _path_want(path: str) -> dict:
-    """Launches per factorization of `path`: each kernel's, K1's per route
-    (ROUTE_LAUNCHES, derived from the step loop once the card's cluster
-    route is known) and K3's and K2's on their wgmma route."""
-    want = {k: PATH_LAUNCHES[path].get(k, 0) for k in KERNELS}
-    want.update(ROUTE_LAUNCHES[path])
+    """Launches per factorization of `path` (a main path or a dtype path):
+    each kernel's, K1's per route (ROUTE_LAUNCHES, derived from the step
+    loop once the card's cluster route is known; a dtype path's K1 blocks
+    are its base path's, on the float32 kernel or, for float64, all on K1
+    in double) and K3's and K2's on their wgmma route."""
+    if path in DTYPE_PATHS:
+        base, table = DTYPE_PATHS[path]
+    else:
+        base, table = path, PATH_LAUNCHES[path]
+    want = {k: table.get(k, 0) for k in KERNELS}
+    want.update({f"rank1_panel {r}": 0 for r in K1_ROUTES})
+    if want["rank1_panel"]:
+        want.update(ROUTE_LAUNCHES[base])
     want["schur_update wgmma"] = want["schur_update"]
     want["sub_matmul_bigk wgmma"] = want["sub_matmul_bigk"]
     return want
@@ -1153,6 +1379,113 @@ def phase_cholesky_path(smi: str):
     return counts
 
 
+def _dtype_inputs(path: str):
+    """The dtype phase's input of `path`, made on the card from a seed:
+    chip_smoke's LU input 5 + U(0, 1) (seed 42), its Cholesky input
+    (X + X^T)/2 + N I (seed 43), rounded to bf16 by torch or made in f64;
+    for the complex LU, (5 + U(0, 1)) + i U(0, 1) at C64_N (seed 42)."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    if path == "c64 clu":
+        g.manual_seed(42)
+        re = 5.0 + torch.rand(C64_N, C64_N, generator=g, device="cuda")
+        im = torch.rand(C64_N, C64_N, generator=g, device="cuda")
+        return torch.complex(re, im)
+    bf16 = path.startswith("bf16")
+    made = torch.float32 if bf16 else torch.float64
+    if path.endswith("cholesky"):
+        g.manual_seed(43)
+        A = torch.rand(N, N, generator=g, device="cuda", dtype=made)
+        A = A + A.T
+        A.mul_(0.5)
+        A.diagonal().add_(float(N))
+    else:
+        g.manual_seed(42)
+        A = 5.0 + torch.rand(N, N, generator=g, device="cuda", dtype=made)
+    return A.to(torch.bfloat16) if bf16 else A
+
+
+def phase_dtypes(smi: str):
+    """The dtype paths at full width: bf16 storage crout 'gather', flat
+    and Cholesky, float64 crout and Cholesky at N, V; complex64
+    clu_factor at C64_N. Each: one warm-up and REPS timed factorizations
+    with every kernel's launches per run held to DTYPE_PATHS, the peak
+    device memory, and the JAX package's gate on the blocked residual.
+    Returns each path's launches."""
+    import torch
+
+    from conflux_tpu_torch.cholesky.single import cholesky
+    from conflux_tpu_torch.lu.csingle import clu_factor
+    from conflux_tpu_torch.lu.single import lu_factor
+    from conflux_tpu_torch.validation import cholesky_residual_blocked, \
+        lu_residual_blocked
+
+    runs = {
+        "bf16 crout": lambda a: lu_factor(a, V, "high"),
+        "bf16 flat": lambda a: lu_factor(a, V, "high", scheme="flat"),
+        "bf16 cholesky": lambda a: cholesky(a, V, "high"),
+        "f64 crout": lambda a: lu_factor(a, V, "high"),
+        "f64 cholesky": lambda a: cholesky(a, V, "high"),
+        "c64 clu": lambda a: clu_factor(a, V),
+    }
+    from conflux_tpu_torch.ops import panel
+
+    plain_k1 = panel._rank1_block_t
+
+    def refuse(*args, **kwargs):
+        fail("the plain K1 ran on a CUDA block")
+
+    out = {}
+    for path, fn in runs.items():
+        torch.cuda.empty_cache()
+        A = _dtype_inputs(path)
+        n = A.shape[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        # no CUDA panel block may reach K1's plain version
+        panel._rank1_block_t = refuse
+        try:
+            times, per_run, res = _timed_path(fn, A)
+        finally:
+            panel._rank1_block_t = plain_k1
+        out[path] = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        _expect(per_run, _path_want(path), f"{path} N={n}")
+        if path.endswith("cholesky"):
+            F, perm = res, None
+            if not torch.equal(F, torch.tril(F)):
+                fail(f"{path}: factor is not lower triangular")
+            gate = cholesky_residual_blocked(A, F)
+        else:
+            F, perm = res
+            if not torch.equal(torch.sort(perm).values,
+                               torch.arange(n, device=perm.device)):
+                fail(f"{path}: perm is not a permutation")
+            gate = lu_residual_blocked(A, F, perm)
+        if F.dtype != A.dtype or not bool(torch.isfinite(F).all()):
+            fail(f"{path}: factor {F.dtype} (input {A.dtype}) or not finite")
+        med = statistics.median(times)
+        flops = (n ** 3 / 3.0 if path.endswith("cholesky")
+                 else 2.0 / 3.0 * n ** 3)
+        note = (" (its panel is the JAX package's per-column loop, eager "
+                "here: no kernel in either package; N cut from 32768)"
+                if path == "c64 clu" else "")
+        print(f"dtype path {path} N={n} v={V}{note} on {smi}: times ms "
+              f"{[round(t, 3) for t in times]}, median {med:.3f} ms, "
+              f"{flops / (med * 1e-3) / 1e9:.1f} GFLOP/s, peak memory "
+              f"{peak / 2 ** 30:.3f} GiB, factor {F.dtype}, launches per "
+              f"factorization {per_run[-1]}, blocked residual {gate:.3e} "
+              f"(gate {DTYPE_GATES[path]:.3e})")
+        if not gate < DTYPE_GATES[path]:
+            fail(f"{path}: residual {gate} over its gate "
+                 f"{DTYPE_GATES[path]}")
+        del A, F, perm, res
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_k1_blocks(program: str, n: int = DIST_N, v: int = DIST_V,
                    shape=DIST_GRID):
     """(w, m, forced) of every K1 block ONE rank of a `shape` grid
@@ -1199,30 +1532,51 @@ def dist_k1_blocks(program: str, n: int = DIST_N, v: int = DIST_V,
 
 
 def _dist_want(program: str, route, n: int, v: int, shape,
-               precision: str) -> dict:
+               precision: str, dtype: str = "float32") -> dict:
     """Each counter's launches on one rank in one run of `program`: K1's
     in all and per route (route(w, m, forced) names a block's route on
-    this card), K3's one per right-looking LU step in 'high' where
-    l = v / Pz is a multiple of 128 (`_trailing_sub`'s condition), every
-    other kernel's none."""
+    this card), K3's one per right-looking LU step in 'high' (or under
+    bf16 storage, 'bf16out') where l = v / Pz is a multiple of 128
+    (`_trailing_sub`'s condition), every other kernel's none. float64
+    runs every K1 block on K1 in double and no K3; the complex LU
+    ('clu') launches no kernel."""
     want = {name: 0 for name in _counters()}
+    if program == "clu":
+        return want
     blocks = dist_k1_blocks(program, n, v, shape)
+    if dtype == "float64":
+        want["rank1_panel_f64"] = len(blocks)
+        return want
     want["rank1_panel"] = len(blocks)
     taken = [route(*b) for b in blocks]
     for r in K1_ROUTES:
         want[f"rank1_panel {r}"] = taken.count(r)
-    if (program in ("windowed", "fori") and precision == "high"
+    if (program in ("windowed", "fori")
+            and (precision == "high" or dtype == "bfloat16")
             and (v // shape[2]) % 128 == 0):
         want["schur_update"] = want["schur_update wgmma"] = n // v
     return want
 
 
 def _dist_runs(n: int, v: int):
-    """(name, algorithm, shape, n, v, precision, unroll, what) of each
-    factorization of the dist phase; shape and v None: the entry
-    points' defaults (pdgetrf / pdpotrf)."""
+    """(name, algorithm, shape, n, v, precision, unroll, what, dtype) of
+    each factorization of the dist phase; shape and v None: the entry
+    points' defaults (pdgetrf / pdpotrf). The dtype runs: 'windowed' and
+    'crout' LU and the auto-variant Cholesky under bf16 storage and in
+    float64, and the complex64 LU, at N / 2 and v / 2 (l = v / (2 Pz) =
+    128: K3 runs every bf16 'windowed' step)."""
     half = n // 2
-    return (
+    dtype_runs = tuple(
+        run + (dtype,)
+        for dtype, tag in (("bfloat16", "bf16"), ("float64", "f64"))
+        for run in (
+            (f"lu_25d windowed {tag}", "lu", DIST_GRID, half, v // 2, "high",
+             "windowed", f"tournament, {tag} storage"),
+            (f"lu_25d crout {tag}", "lu", DIST_GRID, half, v // 2, "high",
+             "crout", f"tournament, {tag} storage"),
+            (f"cholesky_25d {tag}", "cholesky", DIST_GRID, half, v // 2,
+             "high", None, f"auto variant, {tag} storage")))
+    return tuple(run + ("float32",) for run in (
         ("lu_25d", "lu", DIST_GRID, n, v, "high", None,
          "tournament, auto variant"),
         ("cholesky_25d", "cholesky", DIST_GRID, n, v, "high", None,
@@ -1239,7 +1593,19 @@ def _dist_runs(n: int, v: int):
          "substep regions, each fenced"),
         ("lu_25d fori", "lu", DIST_GRID, half, v, "high", False,
          "the profiled run's unprofiled twin"),
-    )
+    )) + dtype_runs + (
+        ("clu_25d c64", "clu", DIST_GRID, half, v // 2, None, "fori",
+         "tournament, '4m' products, complex64", "complex64"),)
+
+
+# the distributed gates, by dtype: the reference's 1e-6, the JAX
+# package's bf16 storage bounds (LU tests/test_lu_dist.py:404, Cholesky
+# tests/test_cholesky_dist.py:217), its f64 bound (tests/test_f64_mode.py)
+# and its complex64 bound (tests/test_complex.py:164)
+DIST_GATES = {("float32", "lu"): 1e-6, ("float32", "cholesky"): 1e-6,
+              ("bfloat16", "lu"): 6e-4, ("bfloat16", "cholesky"): 2e-4,
+              ("float64", "lu"): 1e-14, ("float64", "cholesky"): 1e-14,
+              ("complex64", "clu"): 1e-6}
 
 
 def _run_shape(name, algorithm, shape, n, v):
@@ -1257,6 +1623,8 @@ def _run_shape(name, algorithm, shape, n, v):
         shape = (choose_grid_lu(n, n, P) if algorithm == "lu"
                  else choose_grid_cholesky(P, n))
         v = choose_tile_cholesky(n, shape, P)
+    if algorithm == "clu":
+        return shape, v, "fori"      # clu_25d has the one program
     Px, Py, Pz = shape
     # a descriptor on the grid's shape alone: no process group needed
     grid = SimpleNamespace(Px=Px, Py=Py, Pz=Pz, P=Px * Py * Pz)
@@ -1305,6 +1673,7 @@ def _dist_rank(n: int, v: int, check):
     from conflux_tpu_torch.grid import make_grid
     from conflux_tpu_torch.layout import BlockCyclic, distribute, retile, \
         undistribute
+    from conflux_tpu_torch.lu.cp25d import clu_25d
     from conflux_tpu_torch.lu.p25d import lu_25d, plu
     from conflux_tpu_torch.lu.profiled import lu_25d_profiled
     from conflux_tpu_torch.lu.single import lu_factor
@@ -1325,9 +1694,15 @@ def _dist_rank(n: int, v: int, check):
     inputs = {m: _dist_inputs(m, "cuda") for m in (n, n // 2)}
     kept = {}
     for (name, algorithm, shape, m, vv, precision, unroll,
-         _) in _dist_runs(n, v):
+         _, dtype) in _dist_runs(n, v):
         A, S = inputs[m]
-        M = A if algorithm == "lu" else S
+        M = S if algorithm == "cholesky" else A
+        if dtype == "complex64":
+            g = torch.Generator(device="cuda").manual_seed(45)
+            M = torch.complex(M, torch.rand(m, m, generator=g,
+                                            device="cuda"))
+        else:
+            M = M.to(getattr(torch, dtype))
         sync()
         dist.barrier()
         _reset_counts()
@@ -1353,6 +1728,8 @@ def _dist_rank(n: int, v: int, check):
                 profiler.PC()
             elif algorithm == "lu":
                 F, perm = lu_25d(G, desc, "tournament", precision, unroll)
+            elif algorithm == "clu":
+                F, perm = clu_25d(G, desc)
             else:
                 F = cholesky_25d(G, desc, precision, unroll)
         sync()
@@ -1462,14 +1839,16 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
     wall = time.perf_counter() - t0
     sums = {}
     for (name, algorithm, shape, m, vv, precision, unroll,
-         what) in _dist_runs(n, v):
+         what, dtype) in _dist_runs(n, v):
         shape, vv, auto = _run_shape(name, algorithm, shape, m, vv)
         variant = {None: auto, False: "fori"}.get(unroll, unroll)
-        program = "cholesky" if algorithm == "cholesky" else variant
-        if program not in ("windowed", "fori", "crout", "cholesky"):
+        program = (algorithm if algorithm in ("cholesky", "clu")
+                   else variant)
+        if program not in ("windowed", "fori", "crout", "cholesky", "clu"):
             fail(f"dist {name}: no launch count for variant {variant!r}")
         want = _dist_want(program, cuda_panel.route, m, vv, shape,
-                          precision)
+                          precision, dtype)
+        bound = DIST_GATES[(dtype, algorithm)]
         for r in ranks:
             bad = {k: (r[name]["counts"][k], w) for k, w in want.items()
                    if r[name]["counts"][k] != w}
@@ -1483,21 +1862,20 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
                  f"expected {grid} v={vv}")
         if not root["on_card"]:
             fail(f"dist {name}: the result left the card")
-        if algorithm == "lu" and not root["permutation"]:
+        if algorithm != "cholesky" and not root["permutation"]:
             fail(f"dist {name}: perm is not a permutation")
-        if not root["residual"] <= RESIDUAL_GATE:
-            fail(f"dist {name}: residual {root['residual']} > "
-                 f"{RESIDUAL_GATE}")
+        if not root["residual"] <= bound:
+            fail(f"dist {name}: residual {root['residual']} > {bound}")
         gates = {r[name]["gate"] for r in ranks}
         gate = root["gate"]
         if len(gates) != 1:
             fail(f"dist {name}: the ranks' distributed gates differ: {gates}")
-        if not (gate <= RESIDUAL_GATE
+        if not (gate <= bound
                 and root["residual"] / GATE_RATIO < gate
                 < root["residual"] * GATE_RATIO):
             fail(f"dist {name}: distributed gate {gate} against the "
                  f"gathered factor's {root['residual']} (bound "
-                 f"{RESIDUAL_GATE}, within {GATE_RATIO}x)")
+                 f"{bound}, within {GATE_RATIO}x)")
         if name == "pdgetrf" and not root["ipiv_walk"]:
             fail("dist pdgetrf: ipiv's swaps do not give perm")
         ms = [r[name]["ms"] for r in ranks]
@@ -1509,12 +1887,14 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
               f"{ms[0]:.1f} ms, max over ranks {max(ms):.1f} ms "
               f"(distribute, factorization and the gather to rank 0; the "
               f"factorization {root['factor_ms']:.1f} ms on rank 0), "
-              f"distributed gate {gate:.3e} in {root['gate_s']:.2f} s, "
-              f"gathered residual {root['residual']:.3e}, launches per "
-              f"rank {{K1: {want['rank1_panel']} (" + ", ".join(
+              f"distributed gate {gate:.3e} (bound {bound:.0e}) in "
+              f"{root['gate_s']:.2f} s, gathered residual "
+              f"{root['residual']:.3e}, launches per rank {{K1: "
+              f"{want['rank1_panel']} (" + ", ".join(
                   f"{r} {want['rank1_panel ' + r]}" for r in K1_ROUTES)
-              + f"), K3: {want['schur_update']}}} as derived from the step "
-              "loop on every rank")
+              + f"), K1 f64: {want['rank1_panel_f64']}, K3: "
+              f"{want['schur_update']}}} as derived from the step loop on "
+              "every rank")
     prof, fori = (ranks[0][k] for k in ("lu_25d_profiled", "lu_25d fori"))
     if not all(r["profiled_equal"] for r in ranks):
         fail("dist lu_25d_profiled: F or pivots differ from lu_25d("
@@ -1578,9 +1958,11 @@ def main() -> int:
           f"blocks on the tile route; launches per factorization by route: "
           f"{ROUTE_LAUNCHES}")
     k1_rows = phase_k1()
+    k1f64_rows = phase_k1_f64()
     medium_bf16 = phase_medium_probe()
     k3_rows = phase_k3(medium_bf16)
     k2_rows = phase_k2(medium_bf16)
+    k2b_rows = phase_k2_bf16()
     _reset_counts()
     k4_rows = phase_k4()
     k4_counts = _counts()
@@ -1591,6 +1973,7 @@ def main() -> int:
                "cholesky": phase_cholesky_path(smi),
                "swap": phase_lu_path(smi, "swap"),
                "split": phase_lu_path(smi, "split")}
+    by_path.update(phase_dtypes(smi))
     by_path.update(phase_dist(smi))
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in KERNELS}
@@ -1623,6 +2006,14 @@ def main() -> int:
                         "conflux_tpu/ops/pallas_scatter.py:114",
                         _pick(k56_rows, kind="gather", rows=V, width=N,
                               dtype="float32")),
+        "rank1_panel_f64": ("conflux_tpu_torch/csrc/rank1_panel_f64.cu",
+                            "conflux_tpu/ops/pallas_panel.py:83",
+                            _pick(k1f64_rows, shape=K1_F64_SHAPES[0][:2],
+                                  mode="finish")),
+        "sub_matmul_bigk_bf16": ("conflux_tpu_torch/csrc/bigk_gemm.cu",
+                                 "conflux_tpu/ops/pallas_gemm.py:151",
+                                 _pick(k2b_rows, shape=K2_BF16_SHAPES[0][0],
+                                       mode="bf16")),
     }
     kernels = []
     for name in KERNELS:
@@ -1645,6 +2036,10 @@ def main() -> int:
         if name in ("schur_update", "sub_matmul_bigk"):
             entry["launches_by_route"] = {
                 "wgmma": sum(c[name + " wgmma"] for c in by_path.values())}
+        if name == "rank1_panel_f64":
+            entry["launches_by_route"] = {"grid": launches[name]}
+        if name == "sub_matmul_bigk_bf16":
+            entry["launches_by_route"] = {"wgmma": launches[name]}
         if name in ("scatter_rows", "gather_rows"):
             bulk = sum(c[name + " bulk"] for c in by_path.values())
             entry["launches_by_route"] = {"bulk": bulk,

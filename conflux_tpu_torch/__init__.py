@@ -27,6 +27,13 @@ ScaLAPACK-style entry points `pdgetrf` / `pdpotrf`; `pgemm` the SUMMA product
 `cholesky_residual_dist`; `profiler` the semiprof-style region timers of
 the substep-profiled rank programs (`lu.profiled`, `cholesky.profiled`);
 `spec` the serial numpy simulation and the comm models.
+
+Every factorization entry point takes the JAX package's dtypes: float32,
+float64 (f64 throughout; K1 in double, `csrc/rank1_panel_f64.cu`) and
+bfloat16 storage (a bf16 buffer and factor, with f32 panels, pivoting,
+TRSMs and reductions and f32-accumulated products; K2's bf16-operand
+entry). Complex64 and complex128 LU are `lu.csingle.clu_factor` and
+`lu.cp25d.clu_25d` (ops/cplx.py: real products of the parts).
 """
 
 __version__ = "0.1.0"
@@ -44,6 +51,9 @@ def __getattr__(name):
     lazy = {
         "lu_factor": "conflux_tpu_torch.lu.single",
         "lu_residual": "conflux_tpu_torch.lu.single",
+        "clu_factor": "conflux_tpu_torch.lu.csingle",
+        "clu_residual": "conflux_tpu_torch.lu.csingle",
+        "clu_25d": "conflux_tpu_torch.lu.cp25d",
         "lu_residual_blocked": "conflux_tpu_torch.validation",
         "cholesky_residual_blocked": "conflux_tpu_torch.validation",
         "lu_solve": "conflux_tpu_torch.solve",
@@ -67,6 +77,7 @@ def __getattr__(name):
 
 
 __all__ = ["ConfluxError", "ErrorCode", "lu_factor", "lu_residual",
+           "clu_factor", "clu_residual", "clu_25d",
            "lu_residual_blocked", "cholesky_residual_blocked",
            "lu_solve", "cho_solve", "make_grid", "lu_25d", "plu",
            "cholesky_25d", "pcholesky", "run_ranks", "pdgetrf", "pdpotrf",

@@ -25,6 +25,13 @@ column is updated and reduced first. 'crout' is the left-looking program:
 no trailing update, each column assembled by one big-K product against
 the frozen columns (the distributed `_potrf_flat`). Factor values live on
 layer 0, zeros on the others, so the z-partial invariant holds throughout.
+
+Dtypes, as in the JAX package: float32, float64 (f64 throughout) and
+bfloat16 STORAGE in every variant: blocks, z-partials and the factor stay
+bf16 while every reduction, the tile potrf and the TRSMs run in f32
+(slices upcast before each psum); the right-looking trailing update is
+one 'bf16out' product rounded into the bf16 block, and the crout
+program's big-K correction is 'bf16' on the bf16 factor columns.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from conflux_tpu_torch.layout import (
     local_tile_to_global,
     undistribute,
 )
+from conflux_tpu_torch.lu.single import check_dtype, compute_dtype
 from conflux_tpu_torch.ops.collect import panel_rows_for_columns
 from conflux_tpu_torch.ops.tri import potrf_tile, schur_dot, trsm_right_lower_t
 from conflux_tpu_torch.precision import ieee_fp32
@@ -73,8 +81,10 @@ def _local_cholesky_25d_unrolled(desc: BlockCyclic, precision: str,
     gt_row = local_tile_to_global(pi, Px, v, Ml, dev)
     gt_col = local_tile_to_global(pj, Py, v, desc.Nl, dev)
 
+    cdt = compute_dtype(G.dtype)   # A keeps G's (storage) dtype
+    mode = "bf16out" if G.dtype == torch.bfloat16 else precision
     A = G.clone()
-    colnext = comm.psum(A[:, :v], "z") if lookahead else None
+    colnext = comm.psum(A[:, :v].to(cdt), "z") if lookahead else None
     for k in range(desc.Nt):
         r0 = (k // Px) * v   # conservative live-row frontier (rank-invariant)
         c0 = (k // Py) * v
@@ -84,7 +94,7 @@ def _local_cholesky_25d_unrolled(desc: BlockCyclic, precision: str,
 
         with region("step0_reduce"):
             colk = (colnext if lookahead
-                    else comm.psum(A[r0:, c0:c0 + v], "z"))
+                    else comm.psum(A[r0:, c0:c0 + v].to(cdt), "z"))
         with region("step1_potrf"):
             diag = colk[:v]
             a00 = comm.psum(diag if own_x and own_y
@@ -118,14 +128,14 @@ def _local_cholesky_25d_unrolled(desc: BlockCyclic, precision: str,
                 # (rows leaving the window at k+1 still take this update)
                 c1 = ((k + 1) // Py) * v
                 r0n = ((k + 1) // Px) * v
-                updn = schur_dot(Lk, W[:, c1 - c0:c1 - c0 + v], precision)
+                updn = schur_dot(Lk, W[:, c1 - c0:c1 - c0 + v], mode)
                 liven = ((gt_row[r0:, None] > k)
                          & (gt_col[None, c1:c1 + v] > k))
                 A[r0:, c1:c1 + v] -= torch.where(liven, updn, 0.0)
-                colnext = comm.psum(A[r0n:, c1:c1 + v], "z")
+                colnext = comm.psum(A[r0n:, c1:c1 + v].to(cdt), "z")
                 W = W.clone()
                 W[:, c1 - c0:c1 - c0 + v] = 0.0
-            upd = schur_dot(Lk, W, precision)
+            upd = schur_dot(Lk, W, mode)
             live = (gt_row[r0:, None] > k) & (gt_col[None, c0:] > k)
             A[r0:, c0:] -= torch.where(live, upd, 0.0)
     return A
@@ -150,6 +160,8 @@ def _local_cholesky_25d_crout(desc: BlockCyclic, precision: str,
     gt_row = local_tile_to_global(pi, Px, v, Ml, dev)
     gt_col = local_tile_to_global(pj, Py, v, desc.Nl, dev)
 
+    cdt = compute_dtype(G.dtype)   # A keeps G's (storage) dtype
+    gmode = "bf16" if G.dtype == torch.bfloat16 else precision
     A = G.clone()
     for k in range(desc.Nt):
         r0 = (k // Px) * v      # live-row frontier; tile k sits at r0 on
@@ -163,13 +175,13 @@ def _local_cholesky_25d_crout(desc: BlockCyclic, precision: str,
         if k > 0:
             rowk = A[r0:r0 + v, :c0f]
             rowk = torch.where((gt_col[None, :c0f] < k) & own_x, rowk, 0.0)
-            slab = comm.psum(rowk, ("x", "z"))                 # [v, c0f]
+            slab = comm.psum(rowk.to(cdt), ("x", "z"))         # [v, c0f]
             # frozen columns are exact zeros on layers pz > 0
-            partial = (schur_dot(A[r0:, :c0f], slab, precision, bt=True)
-                       if pz == 0 else A.new_zeros((Ml - r0, v)))
+            partial = (schur_dot(A[r0:, :c0f], slab, gmode, bt=True)
+                       if pz == 0 else A.new_zeros((Ml - r0, v), dtype=cdt))
         else:
-            partial = A.new_zeros((Ml - r0, v))
-        rawc = A[r0:, c:c + v]
+            partial = A.new_zeros((Ml - r0, v), dtype=cdt)
+        rawc = A[r0:, c:c + v].to(cdt)
         colk = comm.psum((rawc if own_y else torch.zeros_like(rawc))
                          - partial, ("y", "z"))
         diag = colk[:v]
@@ -191,11 +203,7 @@ def _check(G: torch.Tensor, desc: BlockCyclic):
     if desc.M != desc.N:
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            "cholesky requires a square matrix")
-    if G.dtype != torch.float32:
-        raise ConfluxError(
-            ErrorCode.INVALID_TYPE,
-            f"{G.dtype}: the PyTorch port factors float32 only so far "
-            "(bf16 storage, f64 and complex are ROADMAP item 7)")
+    check_dtype(G, "cholesky_25d")
     if tuple(G.shape) != (desc.Ml, desc.Nl):
         raise ConfluxError(ErrorCode.LAYOUT_MISMATCH,
                            f"block {tuple(G.shape)} is not the descriptor's "
@@ -215,7 +223,8 @@ def cholesky_25d(G: torch.Tensor, desc: BlockCyclic,
     'windowed' run the same right-looking program (module docstring), so
     the JAX package's `windows` has no counterpart. precision: the
     trailing and big-K products
-    ('highest', 'high', 'bf16'); tiles and TRSMs stay IEEE fp32. A
+    ('highest', 'high', 'bf16'); tiles and TRSMs stay IEEE fp32. G
+    float32, float64 or bfloat16 (storage: the module docstring). A
     (1, 1, 1) grid runs the single-device `_potrf_flat`."""
     if desc.grid.idle:
         return None

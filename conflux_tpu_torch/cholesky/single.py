@@ -7,6 +7,13 @@ updated by one [m_k, k] x [k, w] product against all previous panels
 transposed view F[k:k+w, :k].T read in place), then factored (a w x w
 `potrf_tile`, K1 in forced mode on the card, and a blocked TRSM). The
 recursive scheme splits in halves.
+
+Dtypes, as in the JAX package: float32 and float64 in both schemes (f64
+throughout: K1 in double on the card, IEEE f64 products), and bfloat16
+STORAGE on the flat scheme (a bf16 input with any scheme runs flat): the
+buffer and the factor stay bf16 while each column, the tile potrf and the
+TRSM run in f32, and the panel update is one 'bf16' product on the bf16
+operands (K2's bf16-operand entry on the card).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
+from conflux_tpu_torch.lu.single import check_dtype, compute_dtype
 from conflux_tpu_torch.ops.gemm import sub_matmul_bigk
 from conflux_tpu_torch.ops.tri import potrf_tile, schur_dot, trsm_right_lower_t
 from conflux_tpu_torch.precision import ieee_fp32
@@ -22,19 +30,26 @@ from conflux_tpu_torch.precision import ieee_fp32
 def _potrf_flat(A: torch.Tensor, v: int,
                 precision: str = "highest") -> torch.Tensor:
     """Left-looking blocked Cholesky on one copy of A, updated in place
-    (A itself is never written). Exactly N^3/3 product FLOPs."""
+    (A itself is never written). Exactly N^3/3 product FLOPs. bf16
+    storage: F is bf16, each column is upcast to f32 and updated by one
+    'bf16' product of the bf16 factor columns."""
     n = A.shape[0]
+    bf16s = A.dtype == torch.bfloat16
     F = A.clone()
     for k in range(0, n, v):
         w = min(v, n - k)
-        col = F[k:, k:k + w]
+        col = F[k:, k:k + w].to(compute_dtype(A.dtype))
         if k > 0:
             L21, L1t = F[k:, :k], F[k:k + w, :k].T
-            # K2 in 'high' only: in 'bf16' it ties with the library's one
-            # pass at these shapes (experiments/torch_kernel_ab.py --steps)
-            col = (sub_matmul_bigk(col, L21, L1t, precision)
-                   if precision == "high"
-                   else col - schur_dot(L21, L1t, precision))
+            # K2 in 'high' only: in 'bf16' on f32 operands it ties with
+            # the library's one pass at these shapes
+            # (experiments/torch_kernel_ab.py --steps)
+            if bf16s:
+                col = col - schur_dot(L21, L1t, "bf16")
+            elif precision == "high" and A.dtype == torch.float32:
+                col = sub_matmul_bigk(col, L21, L1t, precision)
+            else:
+                col = col - schur_dot(L21, L1t, precision)
         L11 = potrf_tile(col[:w])
         F[k:k + w, k:k + w] = L11
         if k + w < n:
@@ -65,27 +80,28 @@ def cholesky(A: torch.Tensor, v: int = 128, precision: str = "highest",
     """Lower Cholesky factor of an SPD matrix. scheme: 'flat'
     (left-looking, in place on one copy of A) or 'recursive'. precision
     ('highest', 'high', 'bf16') sets the big update products; tiles and
-    TRSMs stay fp32. A is never modified."""
+    TRSMs stay fp32. dtype: float32, float64 or bfloat16 storage (flat
+    only: a bf16 A runs flat whatever `scheme` says). A is never
+    modified."""
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            f"cholesky expects a square matrix, got "
                            f"{tuple(A.shape)}")
-    if A.dtype != torch.float32:
-        raise ConfluxError(
-            ErrorCode.INVALID_TYPE,
-            f"{A.dtype}: the PyTorch port factors float32 only so far "
-            "(bf16 storage, f64 and complex are ROADMAP item 7)")
-    if scheme == "flat":
+    check_dtype(A, "cholesky")
+    if scheme not in ("flat", "recursive"):
+        raise ConfluxError(ErrorCode.INVALID_SHAPE,
+                           f"unknown scheme {scheme!r}")
+    if scheme == "flat" or A.dtype == torch.bfloat16:
         return _potrf_flat(A, v, precision)
-    if scheme == "recursive":
-        return _potrf_rec(A, v, precision)
-    raise ConfluxError(ErrorCode.INVALID_SHAPE, f"unknown scheme {scheme!r}")
+    return _potrf_rec(A, v, precision)
 
 
 @ieee_fp32()
 def cholesky_residual(A: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """||A - L L^T||_F / (N ||A||_F) in IEEE fp32 on the factor's device
-    (a 0-d tensor)."""
+    """||A - L L^T||_F / (N ||A||_F) on the factor's device (a 0-d
+    tensor), in IEEE fp32 for float32 and bf16 factors (upcast), f64 for
+    float64."""
     n = L.shape[0]
-    A = torch.as_tensor(A, device=L.device)
+    L = L.to(compute_dtype(L.dtype))
+    A = torch.as_tensor(A, device=L.device).to(L.dtype)
     return torch.linalg.norm(A - L @ L.T) / (n * torch.linalg.norm(A))

@@ -44,6 +44,13 @@ host memory explicitly: the tensor is copied to the CPU, sent or
 received there, and the result copied back. The staging is fixed per
 backend and op; NCCL stages nothing.
 
+Dtypes. The collectives move every dtype as it is: float32, bfloat16,
+float64 and complex (gloo takes all of them on CPU and CUDA tensors,
+`python3 -m experiments.torch_dist_probe --dtypes`), except gather of a
+complex tensor, which gloo refuses ("Invalid scalar type"): it moves the
+tensor's real view (`torch.view_as_real`), the same bytes. Nothing is
+upcast.
+
 Record. Every call appends a `CommRecord` (op, axes, shape, dtype, pairs)
 to `Comm.record`, this rank's list of the collectives it issued: the
 counterpart of the jaxpr walk of tests/test_spec_comm.py, from which
@@ -160,7 +167,10 @@ class Comm:
 
         axes = _canon(axes)
         self._log("psum", axes, t)
-        out = t.clone()
+        # contiguous: the ranks' layouts of one operand may differ (a
+        # transposed view on one rank, zeros on another), and a complex
+        # tensor's real view reaches gloo with its strides unchecked
+        out = t.clone(memory_format=torch.contiguous_format)
         group, _ = self._group(axes)
         if group is not None:
             dist.all_reduce(out, group=group)
@@ -264,7 +274,13 @@ class Comm:
         if group is None:
             return t.clone()[None]
         x = t.contiguous()
+        if x.is_complex():
+            # gloo's gather refuses complex: the same bytes as real pairs
+            x = torch.view_as_real(x)
         parts = ([torch.empty_like(x) for _ in members]
                  if self.rank == root else None)
         dist.gather(x, parts, dst=members[root], group=group)
-        return torch.stack(parts) if parts is not None else None
+        if parts is None:
+            return None
+        out = torch.stack(parts)
+        return torch.view_as_complex(out) if t.is_complex() else out

@@ -46,6 +46,11 @@
 //     so the result does not change from run to run), subtracts once from
 //     R and rounds once.
 //
+// K2 also takes bfloat16 A and B (the crout LU's and Cholesky's panel
+// updates under bf16 storage, whose operands are already bf16) in 'bf16'
+// and 'bf16out': conflux_sub_matmul_bigk_bf16 builds the tensor maps on the
+// caller's operands and skips the split pass, which would only copy them.
+//
 // K4: C = A @ B with an fp32 result, the plain GEMM skeleton. Replaces
 // conflux_tpu/ops/pallas_gemm.py:matmul_pallas (kernel _mm_kernel). A and B
 // are both float32 or both bfloat16:
@@ -892,6 +897,53 @@ int conflux_sub_matmul_bigk(const void* r, int ldr, void* out, int ldo,
     return launch_bigk<true>(maps, static_cast<const float*>(r), ldr,
                              static_cast<float*>(out), ldo, planes, m, nt, p,
                              s);
+  return r_bf16 ? launch_bigk<false>(
+                      maps, static_cast<const __nv_bfloat16*>(r), ldr,
+                      static_cast<__nv_bfloat16*>(out), ldo, planes, m, nt,
+                      p, s)
+                : launch_bigk<false>(maps, static_cast<const float*>(r), ldr,
+                                     static_cast<float*>(out), ldo, planes,
+                                     m, nt, p, s);
+}
+
+// bytes of workspace K2's bf16-operand entry needs for that call: the
+// split-K planes where K splits (no split copies)
+long long conflux_sub_matmul_bigk_bf16_workspace_bytes(int m, int nt, int k) {
+  const Plan p = plan(m, nt, k);
+  return static_cast<long long>(workspace_bytes(p, m, nt, k, 1) -
+                                layout(m, nt, k, 1).total());
+}
+
+// out = R - A @ B on `stream` for bfloat16 A [m, k] (row stride lda) and
+// B [k, nt] (ldb), read in place: the tensor maps are built on the
+// caller's operands and the split pass is skipped (a bf16 element is its
+// own hi part), so 'bf16' (R float32) and 'bf16out' (R bfloat16, r_bf16)
+// run the one-pass mainloop and epilogue of conflux_sub_matmul_bigk. Both
+// operands must suit TMA: 16-byte-aligned bases, row strides multiples of
+// 8 elements. ws holds ws_bytes bytes, at least conflux_sub_matmul_bigk_
+// bf16_workspace_bytes(m, nt, k), 256-byte aligned (the split-K planes).
+// *route receives the kernel launched (1: wgmma). Returns 0 or a
+// cudaError_t code; never synchronises.
+int conflux_sub_matmul_bigk_bf16(const void* r, int ldr, void* out, int ldo,
+                                 int r_bf16, const void* a, int lda,
+                                 const void* b, int ldb, int m, int nt,
+                                 int k, void* ws, long long ws_bytes,
+                                 void* stream, int* route) {
+  if (m < 1 || nt < 1 || k < 1 || !tma_ok(a, lda, k) || !tma_ok(b, ldb, nt))
+    return cudaErrorInvalidValue;
+  const Plan p = plan(m, nt, k);
+  if (ws_bytes < conflux_sub_matmul_bigk_bf16_workspace_bytes(m, nt, k) ||
+      reinterpret_cast<uintptr_t>(ws) % 256 != 0)
+    return cudaErrorInvalidValue;
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  Maps maps{};
+  cudaError_t e = make_map(&maps.a_hi, bf, 2, a, m, k, lda, kBM, kBK);
+  if (e == cudaSuccess)
+    e = make_map(&maps.b_hi, bf, 2, b, k, nt, ldb, kBK, 64);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* planes = static_cast<float*>(ws);
+  *route = kBigkRouteWgmma;
   return r_bf16 ? launch_bigk<false>(
                       maps, static_cast<const __nv_bfloat16*>(r), ldr,
                       static_cast<__nv_bfloat16*>(out), ldo, planes, m, nt,

@@ -2,7 +2,10 @@
 
 The system holds no parameters: what crosses is the input matrix A and
 the factor (F, perm) with A[perm] = unit_lower(F) @ upper(F). Both
-packages take and give numpy arrays at this boundary.
+packages take and give numpy arrays at this boundary. numpy has no
+bfloat16: a bf16 tensor is made from the float32 array, rounded by torch
+(as `jnp.asarray(A, jnp.bfloat16)` rounds it in the JAX package), and a
+bf16 factor leaves as float32, which holds its values exactly.
 """
 
 from __future__ import annotations
@@ -11,14 +14,23 @@ import numpy as np
 import torch
 
 
-def from_numpy(A, device="cuda") -> torch.Tensor:
-    """numpy (or anything array-like) -> float32 tensor on `device`: the
-    card unless the caller asks for the CPU. Without a card the default
+def from_numpy(A, device="cuda", dtype=torch.float32) -> torch.Tensor:
+    """numpy (or anything array-like) -> tensor of `dtype` on `device`:
+    the card unless the caller asks for the CPU. bfloat16 is the float32
+    array rounded to nearest even by torch. Without a card the default
     raises torch's own error; nothing falls back to the CPU."""
-    return torch.as_tensor(np.asarray(A, np.float32), device=device)
+    if dtype == torch.bfloat16:
+        return torch.as_tensor(np.asarray(A, np.float32),
+                               device=device).to(torch.bfloat16)
+    return torch.as_tensor(np.asarray(A), device=device).to(dtype)
 
 
 def factors_to_numpy(F: torch.Tensor, perm: torch.Tensor):
-    """(F, perm) tensors -> (F float32, perm int64) numpy arrays."""
-    return (F.detach().cpu().numpy().astype(np.float32, copy=False),
+    """(F, perm) tensors -> (F, perm int64) numpy arrays. F keeps float32,
+    float64, complex64 and complex128; a bfloat16 F comes back as
+    float32."""
+    F = F.detach()
+    if F.dtype == torch.bfloat16:
+        F = F.float()
+    return (F.cpu().numpy(),
             perm.detach().cpu().numpy().astype(np.int64, copy=False))

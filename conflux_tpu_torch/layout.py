@@ -222,7 +222,8 @@ def _moves(P_src: int, v_src: int, L_src: int, P_dst: int, v_dst: int,
     return out
 
 
-def retile(G, src: BlockCyclic, dst: BlockCyclic):
+def retile(G, src: BlockCyclic, dst: BlockCyclic,
+           dtype: torch.dtype = torch.float32):
     """Move a distributed matrix from descriptor `src` to `dst` over the
     same world: this rank's block of the same matrix under `dst` (layer 0
     carries the data, the other layers zeros), None where `dst` leaves the
@@ -233,7 +234,9 @@ def retile(G, src: BlockCyclic, dst: BlockCyclic):
     (`comm.Comm.all_to_all`): every rank sends each destination rank the
     entries it holds of that rank's block, and no rank ever holds the
     whole matrix. Every rank of the world must call it, idle ones too
-    (G None there). Raises LAYOUT_MISMATCH on different global shapes."""
+    (G None there). The data moves in G's dtype; a rank idle in `src`
+    holds no block to read it from and takes `dtype`, which must then be
+    the matrix's. Raises LAYOUT_MISMATCH on different global shapes."""
     if (src.M, src.N) != (dst.M, dst.N):
         raise ConfluxError(ErrorCode.LAYOUT_MISMATCH,
                            f"retile requires identical global shapes, got "
@@ -245,6 +248,7 @@ def retile(G, src: BlockCyclic, dst: BlockCyclic):
                            f"descriptor's {(src.Ml, src.Nl)}")
     comm = gs.comm
     dev = gd.device if G is None else G.device
+    dtype = dtype if G is None else G.dtype
     rows = _moves(gs.Px, src.v, src.Ml, gd.Px, dst.v, dev)
     cols = _moves(gs.Py, src.v, src.Nl, gd.Py, dst.v, dev)
     world = comm.world_size()
@@ -261,9 +265,10 @@ def retile(G, src: BlockCyclic, dst: BlockCyclic):
             blk = G[rown == a][:, coln == b]
             chunks.append(blk.reshape(-1))
             in_splits[d] = blk.numel()
-    # a rank idle in `src` sends nothing (in the port's one dtype, f32)
+    # a rank idle in `src` sends nothing, in the matrix's dtype (`dtype`,
+    # which it cannot read off a block it does not hold)
     send = (torch.cat(chunks) if chunks
-            else torch.zeros(0, dtype=torch.float32, device=dev))
+            else torch.zeros(0, dtype=dtype, device=dev))
 
     # what this rank receives: from each source rank s = (p, q, z), the
     # entries whose destination is this rank, in the sender's order
@@ -293,11 +298,12 @@ def retile(G, src: BlockCyclic, dst: BlockCyclic):
     return out
 
 
-def redistribute(G, src: BlockCyclic, dst: BlockCyclic):
+def redistribute(G, src: BlockCyclic, dst: BlockCyclic,
+                 dtype: torch.dtype = torch.float32):
     """Move a distributed matrix onto a descriptor on another grid of the
     same world, for example from (2, 2, 2) to (2, 2, 1) with ranks 4-7
     idle. The JAX package's `redistribute(X, sharding)` is a device_put
     onto another sharding; the port has no sharding object, so the
     destination is a `BlockCyclic` and the move is `retile`'s all-to-all,
     whose contract it keeps."""
-    return retile(G, src, dst)
+    return retile(G, src, dst, dtype)

@@ -45,6 +45,15 @@ reduced first; 'windowed' rebalances at each segment start of
 trailing update; each step's panel column is assembled by one big-K
 product against the frozen L columns and the U rows already in F, and
 the winners' U12 row is finished by a second, distributed big-K product.
+
+Dtypes, as in the JAX package: float32, float64 (f64 throughout: K1 in
+double, IEEE f64 products) and bfloat16 STORAGE in every variant: the
+local block, its z-partials and the factor F stay bf16, while the panel
+math, pivot selection, TRSMs and every reduction run in f32 (each slice
+is upcast before its psum), the right-looking trailing update is one
+'bf16out' pass into the bf16 block (K3 where it applies), and the crout
+program's big-K products are 'bf16' on the bf16 operands. Collectives
+move each tensor in the dtype the JAX program moves it in (comm.py).
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from conflux_tpu_torch.layout import (
     local_tile_to_global,
     undistribute,
 )
+from conflux_tpu_torch.lu.single import check_dtype, compute_dtype
 from conflux_tpu_torch.ops.gemm import schur_update
 from conflux_tpu_torch.ops.panel import _lu_select_loop_t, \
     factor_panel_raw, lu_nopivot, select_pivots
@@ -77,12 +87,6 @@ from conflux_tpu_torch.precision import ieee_fp32
 from conflux_tpu_torch.profiler import no_region
 
 PIVOTINGS = ("tournament", "gather", "full", "none")
-
-
-def _compute_dtype(dt):
-    """Panel-math dtype: f32 for bf16 storage, otherwise the storage dtype
-    (the JAX package's contract; the port takes f32 only so far)."""
-    return torch.float32 if dt == torch.bfloat16 else dt
 
 
 def _select_only(panel, active, v):
@@ -119,13 +123,18 @@ def _round_exchange(comm, pi: int, arrays, r: int, Px: int):
     return tuple(recvs), src_of
 
 
-def _merge_round(vals_a, idx_a, vals_b, idx_b, v, last: bool):
+def _merge_round(vals_a, idx_a, vals_b, idx_b, v, last: bool,
+                 select=None):
     """One tournament merge: the v best rows among 2v candidates, which
     keep their original panel values. Only the last round's merged factor
-    is used, so only it is formed."""
+    is used, so only it is formed. `select` (panel, active, v) -> (piv,
+    ok, lu) replaces the real round kernel (the complex program's
+    `lu.cp25d.cselect_pivots`), which then runs every round."""
     vals = torch.cat([vals_a, vals_b])
     idx = torch.cat([idx_a, idx_b])
-    if last:
+    if select is not None:
+        piv, ok, lu = select(vals, idx >= 0, v)
+    elif last:
         piv, ok, lu = select_pivots(vals, idx >= 0, v)
     else:
         (piv, ok), lu = _select_only(vals, idx >= 0, v), None
@@ -281,19 +290,23 @@ def _tall_tail(desc: BlockCyclic, comm, A, F, active, pivots, gri):
 
 def _trailing_sub(A, Lk, Yk, c0: int, c1: int, precision: str, active):
     """A[:, c0:c1] -= where(active, Lk @ Yk, 0) in place: the step-6
-    trailing update (conflux_opt.hpp:1626-1634). In 'high' and 'bf16',
-    when the span runs to A's last column and the update rank l is a
-    multiple of 128 (the JAX package's conditions, less its TPU-only
-    operand-size gate), K3 (`ops/gemm.schur_update`) fuses it, with the
-    row mask folded into Lk's rows; otherwise a product and a masked
-    subtraction."""
+    trailing update (conflux_opt.hpp:1626-1634). A bf16 A (bf16 storage)
+    takes 'bf16out' whatever `precision` says. In 'high' and 'bf16' on a
+    float32 A, and 'bf16out' on a bf16 one, when the span runs to A's last
+    column and the update rank l is a multiple of 128 (the JAX package's
+    conditions, less its TPU-only operand-size gate), K3
+    (`ops/gemm.schur_update`) fuses it, with the row mask folded into Lk's
+    rows; otherwise (float64 included) a product of `schur_dot` and a
+    masked subtraction."""
     m, n = A.shape
     l = Lk.shape[1]
-    if c1 == n and precision in ("high", "bf16") and l % 128 == 0:
-        schur_update(A, torch.where(active[:, None], Lk, 0.0), Yk, c0,
-                     precision)
+    mode = "bf16out" if A.dtype == torch.bfloat16 else precision
+    fused = (mode == "bf16out" or (A.dtype == torch.float32
+                                   and mode in ("high", "bf16")))
+    if c1 == n and fused and l % 128 == 0:
+        schur_update(A, torch.where(active[:, None], Lk, 0.0), Yk, c0, mode)
         return
-    upd = schur_dot(Lk, Yk, precision)
+    upd = schur_dot(Lk, Yk, mode)
     A[:, c0:c1] -= torch.where(active[:, None], upd, 0.0)
 
 
@@ -357,12 +370,13 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
 
     gri = local_row_to_global(pi, Px, v, desc.Ml, dev)   # global row of each row
     gt_col = local_tile_to_global(pj, Py, v, Nl, dev)    # global tile of each col
-    A = G.to(_compute_dtype(G.dtype), copy=True)
+    cdt = compute_dtype(G.dtype)   # A and F keep G's (storage) dtype
+    A = G.clone()
     F = torch.zeros_like(A)
     active = torch.ones(desc.Ml, dtype=torch.bool, device=dev)
     pivots = torch.zeros(desc.M, dtype=torch.int64, device=dev)
 
-    colnext = comm.psum(A[:, :v], "z") if lookahead else None
+    colnext = comm.psum(A[:, :v].to(cdt), "z") if lookahead else None
     for k in range(Nt):
         mr = A.shape[0]         # working height (shrinks at a rebalance)
         c0 = (k // Py) * v      # frozen-column frontier
@@ -372,7 +386,8 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
 
         # -- step 0: lazy z-reduction of the panel column --------------------
         with region("step0_reduce"):
-            colk = colnext if lookahead else comm.psum(A[:, c0:c0 + v], "z")
+            colk = (colnext if lookahead
+                    else comm.psum(A[:, c0:c0 + v].to(cdt), "z"))
 
         # -- step 1: pivot selection over 'x' ---------------------------------
         with region("step1_pivot"):
@@ -393,7 +408,7 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
         # trailing columns are z-partials and frozen L columns live on layer
         # 0, so one masked psum over ('x', 'z') gives the true rows
         with region("step23_rows"):
-            raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0),
+            raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0).to(cdt),
                             ("x", "z"))
 
         # -- steps 4+5: TRSMs ---------------------------------------------------
@@ -430,7 +445,7 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
                 c1 = ((k + 1) // Py) * v
                 _trailing_sub(A, Lk, Yk[:, c1 - c0:c1 - c0 + v].contiguous(),
                               c1, c1 + v, precision, active)
-                colnext = comm.psum(A[:, c1:c1 + v], "z")
+                colnext = comm.psum(A[:, c1:c1 + v].to(cdt), "z")
                 Yk = Yk.clone()
                 Yk[:, c1 - c0:c1 - c0 + v] = 0.0
             _trailing_sub(A, Lk, Yk, c0, Nl, precision, active)
@@ -445,7 +460,7 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
                     # colnext's rows moved with A; its column is already
                     # updated, so one z-reduction refreshes it
                     c1 = ((k + 1) // Py) * v
-                    colnext = comm.psum(A[:, c1:c1 + v], "z")
+                    colnext = comm.psum(A[:, c1:c1 + v].to(cdt), "z")
 
     if desc.M > desc.N:
         F, pivots = _tall_tail(desc, comm, A, F, active, pivots, gri)
@@ -510,13 +525,19 @@ def _local_lu_25d_crout(desc: BlockCyclic, pivoting: str, precision: str,
 
     gri = local_row_to_global(pi, Px, v, desc.Ml, dev)
     gt_col = local_tile_to_global(pj, Py, v, Nl, dev)
-    A = G.to(_compute_dtype(G.dtype), copy=True)
+    bf16s = G.dtype == torch.bfloat16
+    cdt = compute_dtype(G.dtype)   # A and F keep G's (storage) dtype
+    gmode = "bf16" if bf16s else precision    # the big-K products' mode
+    A = G.clone()
     F = torch.zeros_like(A)
     active = torch.ones(desc.Ml, dtype=torch.bool, device=dev)
     pivots = torch.zeros(desc.M, dtype=torch.int64, device=dev)
     # Px == 1: the local round is the final one, so its multipliers are
-    # L10 and it finishes the winners' rows (the fused panel)
+    # L10 (the fused panel). It also finishes the winners' rows (merged=
+    # False, `fin`), except under bf16 storage, where lu00 must stay f32
+    # for the TRSMs instead of passing through the bf16 block
     fused = Px == 1 and pivoting in ("tournament", "gather")
+    fin = fused and not bf16s
     gather_free = Px == 1 and Py == 1      # the reorders are identities
 
     for k in range(Nt):
@@ -549,15 +570,17 @@ def _local_lu_25d_crout(desc: BlockCyclic, pivoting: str, precision: str,
                 idx = torch.arange(nbf, device=dev) * Py + pj
                 slab_sel = slab[idx].reshape(nbf * v, v)
             if pz == 0:         # frozen columns are zeros on other layers
-                partial = schur_dot(A[:, :nbf * v], slab_sel, precision)
-        rawp = A[:, c0:c0 + v] if own_y else A.new_zeros((mr, v))
+                partial = schur_dot(A[:, :nbf * v], slab_sel, gmode)
+        rawp = (A[:, c0:c0 + v].to(cdt) if own_y
+                else A.new_zeros((mr, v), dtype=cdt))
         colk = comm.psum(rawp if partial is None else rawp - partial,
                          ("y", "z"))
 
         # -- step 1: pivot selection ------------------------------------------
         if fused:
-            piv_l, ok_l, Mloc, _ = factor_panel_raw(colk, active, v,
-                                                    block=128, merged=False)
+            piv_l, ok_l, Mloc, lu00 = factor_panel_raw(colk, active, v,
+                                                       block=128,
+                                                       merged=not fin)
             win_idx = torch.where(ok_l, gri[piv_l], -1)
             mine, lr = ok_l, piv_l
         else:
@@ -565,7 +588,7 @@ def _local_lu_25d_crout(desc: BlockCyclic, pivoting: str, precision: str,
                                            k, v, Px, own_y)
             mine, lr = _find_local_rows(gri, win_idx)
         pivots[k * v:(k + 1) * v] = win_idx
-        if fused and own_y:
+        if fin and own_y:
             # live rows take their multipliers, the winners their finished
             # merged rows (carried out by the pivot-row psum below); rows
             # dead before this step take zeros (uneliminated, their values
@@ -575,8 +598,9 @@ def _local_lu_25d_crout(desc: BlockCyclic, pivoting: str, precision: str,
         active &= ~(gri[:, None] == win_idx[None, :]).any(dim=1)
 
         # -- steps 2+3: the raw pivot rows and their U12 correction ----------
-        raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0), ("x", "z"))
-        if fused:
+        raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0).to(cdt),
+                        ("x", "z"))
+        if fin:
             lu00 = comm.psum(raw[:, c0:c0 + v] if own_y
                              else raw.new_zeros((v, v)), "y")
         rhs = raw[:, c0:]
@@ -596,8 +620,7 @@ def _local_lu_25d_crout(desc: BlockCyclic, pivoting: str, precision: str,
                 Lmy = Lg.reshape(v, NB, v)[:, idxm].reshape(v, nmy * v)
             # my U rows of the live window; rows of unwritten steps are
             # zero, and columns of tiles <= k are masked below
-            corr = comm.psum(schur_dot(Lmy, F[:nmy * v, c0:], precision),
-                             "x")
+            corr = comm.psum(schur_dot(Lmy, F[:nmy * v, c0:], gmode), "x")
             rhs = rhs - corr
 
         # -- steps 4+5: TRSMs and the factor and panel writes ----------------
@@ -607,11 +630,14 @@ def _local_lu_25d_crout(desc: BlockCyclic, pivoting: str, precision: str,
             F[r0f:r0f + v, :c0] = raw[:, :c0]
             F[r0f:r0f + v, c0:] = torch.where(gt_col[None, c0:] > k, Y,
                                               raw[:, c0:])
-            if own_y and not fused:
-                # (the fused panel's raw carries lu00 there already)
+            if own_y and not fin:
+                # (the finished panel's raw carries lu00 there already)
                 F[r0f:r0f + v, c0:c0 + v] = lu00
-        if not fused:
-            L10 = trsm_right_upper(colk, U00, method="invert")
+        if not fin:
+            # the fused panel's multipliers are L10 (bf16 storage); else
+            # the TRSM against the winners' U00
+            L10 = (Mloc if fused
+                   else trsm_right_upper(colk, U00, method="invert"))
             if own_y:
                 A[:, c0:c0 + v] = (torch.where(active[:, None], L10, 0.0)
                                    if pz == 0 else 0.0)
@@ -632,11 +658,7 @@ def _check(G: torch.Tensor, desc: BlockCyclic, pivoting: str):
     if desc.M < desc.N:
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            "distributed LU requires M >= N (tall or square)")
-    if G.dtype != torch.float32:
-        raise ConfluxError(
-            ErrorCode.INVALID_TYPE,
-            f"{G.dtype}: the PyTorch port factors float32 only so far "
-            "(bf16 storage, f64 and complex are ROADMAP item 7)")
+    check_dtype(G, "lu_25d")
     if pivoting not in PIVOTINGS:
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            f"unknown pivoting {pivoting!r}; expected one of "
@@ -662,7 +684,8 @@ def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
     pivoting: 'tournament' (butterfly CALU), 'gather' (single-merge
     CALU), 'full' (exact partial pivoting) or 'none' (EmptyPivot).
     precision: the trailing-update mode ('highest', 'high', 'bf16'); the
-    panel math and TRSMs stay IEEE fp32. unroll: None auto-selects
+    panel math and TRSMs stay IEEE fp32. G float32, float64 or bfloat16
+    (storage: the module docstring). unroll: None auto-selects
     (dispatch.choose_variant), True/False force 'unrolled'/'fori', or a
     variant name (module docstring).
     rowpart: the rebalance cadence of 'unrolled'/'lookahead' (None = Px,
@@ -674,7 +697,8 @@ def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
 
     A (1, 1, 1) grid with 'tournament', 'gather' or 'full' runs the
     single-device `_getrf_crout` (every strategy is exact partial
-    pivoting there), whose F and perm have the same layout."""
+    pivoting there, and crout is the JAX package's bf16-storage choice),
+    whose F and perm have the same layout."""
     if desc.grid.idle:
         return None, None
     _check(G, desc, pivoting)

@@ -26,6 +26,16 @@ run their row gathers through K6 and swap's push-up through K5
 
 Pivoting lives in the v-wide panel only (masked argmax) and creates no
 data-dependent shape, so the step loops never wait for the device.
+
+Dtypes, as in the JAX package: float32; float64 end to end, in every
+scheme (its panels run K1 in double on the card, its products IEEE f64);
+and bfloat16 STORAGE in crout (every compaction) and flat: the working
+buffer and the factor are bf16, while panels, pivot selection, TRSMs and
+every reduction run in f32 and the trailing products accumulate in f32
+and round once into the buffer ('bf16' big-K products on bf16 operands,
+K2's bf16-operand entry on the card; flat's 'bf16out' update, K3). A
+bf16 input with any other scheme runs crout. Complex inputs go to
+`lu.csingle.clu_factor`.
 """
 
 from __future__ import annotations
@@ -48,6 +58,14 @@ from conflux_tpu_torch.ops.tri import (
     upper,
 )
 from conflux_tpu_torch.precision import ieee_fp32
+
+_BF16 = torch.bfloat16
+
+
+def compute_dtype(dt):
+    """Panel-math dtype: f32 for bf16 storage, otherwise the storage
+    dtype (f32 or f64)."""
+    return torch.float32 if dt == _BF16 else dt
 
 
 def _partition_now(dead: int, v: int, k: int, w: int, n: int,
@@ -76,9 +94,12 @@ def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
         copied into F at its static row offset, and the live rows compact
         (order kept) into a fresh, smaller R.
 
-    A is not modified: R starts as one copy of it."""
+    bf16 storage: R and F are bf16, each panel is upcast to f32, and the
+    trailing update is one 'bf16out' pass into R (K3 on the card). A is
+    not modified: R starts as one copy of it."""
     m, n = A.shape
     dev = A.device
+    cdt = compute_dtype(A.dtype)
     R = A.clone()                  # working region, updated in place
     origin = torch.arange(m, device=dev)
     avail = torch.ones(m, dtype=torch.bool, device=dev)
@@ -90,7 +111,7 @@ def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
     for k in range(0, n, v):
         w = min(v, n - k)
         m_r = R.shape[0]
-        panel = R[:, k:k + w]
+        panel = R[:, k:k + w].to(cdt)
         # block=128: wider rank-1 blocks at the full panel heights
         piv, _, M = factor_panel(panel, avail, w, block=128)
         lu_top = M[piv]                                # [w, w] merged factors
@@ -105,7 +126,8 @@ def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
         avail[piv] = False         # avail is this function's own tensor
         U12 = None
         if k + w < n:
-            U12 = trsm_left_lower_unit(unit_lower(lu_top), R[piv, k + w:],
+            U12 = trsm_left_lower_unit(unit_lower(lu_top),
+                                       R[piv, k + w:].to(cdt),
                                        method="invert")
             Mgemm = torch.where(avail[:, None], M, 0.0)
             if not splice:
@@ -114,8 +136,12 @@ def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
                 # JAX package forms this by a one-hot product at HIGHEST
                 # precision; the index add is that product, exactly.
                 Mgemm[piv] += torch.tril(lu_top, -1)
-            if precision == "highest":
-                R[:, k + w:].sub_(torch.mm(Mgemm, U12))     # IEEE fp32
+            if R.dtype == _BF16:
+                # bf16 storage: one bf16 pass rounded once into R
+                schur_update(R, Mgemm, U12, k + w, "bf16out")
+            elif precision == "highest" or R.dtype == torch.float64:
+                # IEEE fp32, or the f64 product of schur_dot
+                R[:, k + w:].sub_(schur_dot(Mgemm, U12, precision))
             else:
                 # R is float32 here, so 'bf16out' (one pass rounded into
                 # R's own type) is the kernel's 'bf16' pass, as on the TPU
@@ -162,9 +188,16 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
       * the live rows' multipliers are written to the panel columns of R,
         and every `partition` steps the live rows compact (order kept).
 
-    A is not modified. Peak memory is A, F and the shrinking R."""
+    bf16 storage: R and F are bf16; the panel and the winners' raw row are
+    upcast to f32, the big-K products run 'bf16' on the bf16 operands, and
+    the elimination keeps merged=True, so lu_top stays f32 for the TRSM
+    instead of passing through bf16 R. A is not modified. Peak memory is
+    A, F and the shrinking R."""
     m, n = A.shape
     dev = A.device
+    bf16s = A.dtype == _BF16
+    cdt = compute_dtype(A.dtype)
+    gmode = "bf16" if bf16s else precision
     R = A                          # working region; replaced, never written, while it is A
     origin = torch.arange(m, device=dev)
     avail = torch.ones(m, dtype=torch.bool, device=dev)
@@ -174,26 +207,27 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
     for k in range(0, n, v):
         w = min(v, n - k)
         m_r = R.shape[0]
-        panel = R[:, k:k + w]
+        panel = R[:, k:k + w].to(cdt)
         if k > 0:
-            panel = sub_dot(panel, R[:, :k], F[:k, k:k + w], precision)
-        piv, _, M, _ = factor_panel_raw(panel, avail, w, block=128,
-                                        merged=False)
+            panel = sub_dot(panel, R[:, :k], F[:k, k:k + w], gmode)
+        piv, _, M, lu = factor_panel_raw(panel, avail, w, block=128,
+                                         merged=bf16s)
         # panel columns: multipliers on live rows, the merged factor on
-        # this step's pivot rows (finished lanes), raw values on dead rows
+        # this step's pivot rows (finished lanes; stale under bf16
+        # storage, whose lu_top comes from `lu`), raw values on dead rows
         cols = torch.where(avail[:, None], M, panel)
         avail[piv] = False         # avail is this function's own tensor
         dead += w
         # the winners' full factor row, each part written into F in place
         Rpiv = R[piv]                                  # [w, n] row gather
-        lu_top = cols[piv]                             # [w, w] merged rows
+        lu_top = cols[piv] if lu is None else lu       # [w, w] merged rows
         if k > 0:
             F[k:k + w, :k] = Rpiv[:, :k]
         F[k:k + w, k:k + w] = lu_top
         if k + w < n:
-            rhs = Rpiv[:, k + w:]
+            rhs = Rpiv[:, k + w:].to(cdt)
             if k > 0:
-                rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], precision)
+                rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], gmode)
             F[k:k + w, k + w:] = trsm_left_lower_unit(
                 unit_lower(lu_top), rhs, method="invert")
         perm[k:k + w] = origin[piv]
@@ -236,12 +270,16 @@ def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
 
     Pivot for pivot the same as 'gather' at partition=1: every product and
     panel operand holds the same values in the same row order. `partition`
-    does not apply (Lbuf compacts every step)."""
+    does not apply (Lbuf compacts every step). bf16 storage: T, Lbuf and F
+    are bf16, the gathered panel and pivot rows are upcast to f32, and the
+    big-K products run 'bf16' on the bf16 operands."""
     m, n = A.shape
     dev = A.device
-    # R is float32 here, so 'bf16out' is K2's 'bf16' pass, as on the flat
-    # path
-    mode = "bf16" if precision == "bf16out" else precision
+    cdt = compute_dtype(A.dtype)
+    # the panel is float32 (or f64) here, so 'bf16out' is K2's 'bf16'
+    # pass, as on the flat path; bf16 storage's products are 'bf16'
+    mode = ("bf16" if precision == "bf16out" or A.dtype == _BF16
+            else precision)
     T = A
     origin = torch.arange(m, device=dev)
     everyone = torch.ones(m, dtype=torch.bool, device=dev)
@@ -251,7 +289,7 @@ def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
     for k in range(0, n, v):
         w = min(v, n - k)
         m_live = m - k
-        panel = gather_rows(T[:, k:k + w], origin)             # [m_live, w]
+        panel = gather_rows(T[:, k:k + w], origin).to(cdt)     # [m_live, w]
         if k > 0:
             panel = sub_dot(panel, Lbuf, F[:k, k:k + w], mode)
         piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
@@ -261,7 +299,7 @@ def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
             Lpiv = gather_rows(Lbuf, piv)                      # [w, k]
             F[k:k + w, :k] = Lpiv
         if k + w < n:
-            rhs = gather_rows(T[:, k + w:], origin[piv])       # [w, n-k-w]
+            rhs = gather_rows(T[:, k + w:], origin[piv]).to(cdt)
             if k > 0:
                 rhs = sub_dot(rhs, Lpiv, F[:k, k + w:], mode)
             F[k:k + w, k + w:] = trsm_left_lower_unit(
@@ -274,7 +312,7 @@ def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
             rows = torch.arange(m_live, device=dev)
             live_idx = torch.sort(torch.where(keep, rows, m_live)).values[
                 :m_live - w]
-            Mlive = gather_rows(M, live_idx)                   # newborn
+            Mlive = gather_rows(M, live_idx).to(A.dtype)       # newborn
             Lbuf = (Mlive if Lbuf is None else
                     torch.cat([gather_rows(Lbuf, live_idx), Mlive], dim=1))
             origin = origin[live_idx]
@@ -325,10 +363,12 @@ def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
     region. Row order inside the prefix differs from 'gather', so fp-tie
     pivots may legally differ. `partition` does not apply (the frontier
     shrinks every step). A is not modified: the scatter writes R in
-    place, and R starts as one copy of A."""
+    place, and R starts as one copy of A. bf16 storage as in 'split'."""
     m, n = A.shape
     dev = A.device
-    mode = "bf16" if precision == "bf16out" else precision   # as 'split'
+    cdt = compute_dtype(A.dtype)
+    mode = ("bf16" if precision == "bf16out" or A.dtype == _BF16
+            else precision)                                  # as 'split'
     R = A.clone()
     origin = torch.arange(m, device=dev)
     everyone = torch.ones(m, dtype=torch.bool, device=dev)
@@ -337,7 +377,7 @@ def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
     for k in range(0, n, v):
         w = min(v, n - k)
         m_live = m - k
-        panel = R[:m_live, k:k + w]
+        panel = R[:m_live, k:k + w].to(cdt)
         if k > 0:
             panel = sub_dot(panel, R[:m_live, :k], F[:k, k:k + w], mode)
         piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
@@ -349,7 +389,7 @@ def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
             F[k:k + w, :k] = Rpiv[:, :k]
         F[k:k + w, k:k + w] = lu_top
         if k + w < n:
-            rhs = Rpiv[:, k + w:]
+            rhs = Rpiv[:, k + w:].to(cdt)
             if k > 0:
                 rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], mode)
             F[k:k + w, k + w:] = trsm_left_lower_unit(
@@ -421,7 +461,11 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
     original row. precision: 'highest' (IEEE fp32), 'high' (bf16x3) or
     'bf16' (bf16 products with fp32 accumulation) for the big products of
     each step; panels and TRSMs stay IEEE fp32 whatever TF32 setting the
-    caller chose (`precision.ieee_fp32`).
+    caller chose (`precision.ieee_fp32`). dtype: float32, float64 (f64
+    throughout, every precision an IEEE f64 product) or bfloat16 storage
+    (crout and flat, the big products 'bf16' whatever `precision` says;
+    any other scheme runs crout); complex inputs raise and point to
+    `lu.csingle.clu_factor`.
     scheme: 'crout', 'flat' or 'recursive'. 'auto' runs crout: the JAX
     package's auto_scheme threshold (recursive below N=16384) was measured
     on a TPU, and the port keeps crout until the card's own numbers say
@@ -432,17 +476,15 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
     m, n = A.shape
     if m < n:
         raise ConfluxError(ErrorCode.INVALID_SHAPE, "lu_factor expects m >= n")
-    if A.dtype != torch.float32:
-        raise ConfluxError(
-            ErrorCode.INVALID_TYPE,
-            f"{A.dtype}: the PyTorch port factors float32 only so far "
-            "(bf16 storage, f64 and complex are ROADMAP item 7)")
+    check_dtype(A, "lu_factor")
     if scheme not in ("auto", "crout", "flat", "recursive"):
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            f"unknown scheme {scheme!r}")
     if compaction not in ("gather", "split", "swap"):
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            f"unknown compaction {compaction!r}")
+    if A.dtype == _BF16 and scheme not in ("flat", "crout"):
+        scheme = "crout"            # the bf16-storage default, as in JAX
     if scheme == "flat":
         return _getrf_flat(A, v, precision, partition=partition)
     if scheme == "recursive":
@@ -452,6 +494,22 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
     if compaction == "swap":
         return _getrf_crout_swap(A, v, precision)
     return _getrf_crout(A, v, precision, partition=partition)
+
+
+# the dtypes the real factorizations take
+DTYPES = (torch.float32, torch.float64, _BF16)
+
+
+def check_dtype(A: torch.Tensor, entry: str):
+    """Raise INVALID_TYPE unless A is float32, float64 or bfloat16; a
+    complex A is pointed to the complex entry points."""
+    if A.dtype in DTYPES:
+        return
+    hint = (" (complex LU: lu.csingle.clu_factor, lu.cp25d.clu_25d)"
+            if A.dtype.is_complex else "")
+    raise ConfluxError(ErrorCode.INVALID_TYPE,
+                       f"{entry} takes float32, float64 or bfloat16, not "
+                       f"{A.dtype}{hint}")
 
 
 def _split_factors(F: torch.Tensor):
@@ -473,10 +531,13 @@ def lu(A: torch.Tensor, v: int = 128):
 @ieee_fp32()
 def lu_residual(A: torch.Tensor, F: torch.Tensor,
                 perm: torch.Tensor) -> torch.Tensor:
-    """The reference's correctness gate ||PA - LU||_F / (N ||A||_F), in
-    IEEE fp32 on the factors' device (a 0-d tensor)."""
+    """The reference's correctness gate ||PA - LU||_F / (N ||A||_F) on the
+    factors' device (a 0-d tensor), in the factors' dtype: IEEE fp32 for
+    float32 and bf16 factors (upcast), f64 for float64, complex for
+    complex."""
     n = F.shape[1]
+    F = F.to(compute_dtype(F.dtype))
     L, U = _split_factors(F)
-    A = torch.as_tensor(A, device=F.device)
+    A = torch.as_tensor(A, device=F.device).to(F.dtype)
     R = A[perm] - L @ U
     return torch.linalg.norm(R) / (n * torch.linalg.norm(A))

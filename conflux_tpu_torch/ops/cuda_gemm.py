@@ -7,7 +7,8 @@ Counterpart of `conflux_tpu/ops/pallas_gemm.py`:
   * K2, `sub_matmul_bigk` (`sub_matmul_pallas_bigk`, kernels
     `_acc_bigk_kernel` and `_acc_bigk_kernel_x3`): csrc/bigk_gemm.cu, the
     same split pass and wgmma + TMA product over (tile, K split) units,
-    with a split-K sum where tiles are few;
+    with a split-K sum where tiles are few; `sub_matmul_bigk_bf16` is its
+    entry for bfloat16 operands, which the product reads in place;
   * K4, `matmul` (`matmul_pallas`, kernel `_mm_kernel`): csrc/bigk_gemm.cu.
 Each source is built by `nvcc` for `sm_90a` at first use (ops/_build.py)
 and called through ctypes on PyTorch's current stream. The source notes
@@ -34,6 +35,7 @@ SCHUR_UPDATE_LAUNCHES = 0       # K3, every route
 SCHUR_UPDATE_WGMMA_LAUNCHES = 0  # K3 split pass + wgmma (every call)
 SUB_MATMUL_BIGK_LAUNCHES = 0    # K2 (its split-K sum included)
 SUB_MATMUL_BIGK_WGMMA_LAUNCHES = 0  # K2 split pass + wgmma (every call)
+SUB_MATMUL_BIGK_BF16_LAUNCHES = 0  # K2 on bf16 operands, read in place
 MATMUL_LAUNCHES = 0             # K4, every route
 MATMUL_WGMMA_LAUNCHES = 0       # K4 bf16 on TMA-aligned operands: wgmma
 MATMUL_MMA_SYNC_LAUNCHES = 0    # K4 bf16 on other operands: mma.sync
@@ -86,6 +88,12 @@ def _load_bigk() -> ctypes.CDLL:
         lib.conflux_sub_matmul_bigk_splits.restype = i
         lib.conflux_sub_matmul_bigk_smem_bytes.argtypes = []
         lib.conflux_sub_matmul_bigk_smem_bytes.restype = i
+        lib.conflux_sub_matmul_bigk_bf16.argtypes = [p, i, p, i, i, p, i,
+                                                     p, i, i, i, i, p, ll,
+                                                     p, ctypes.POINTER(i)]
+        lib.conflux_sub_matmul_bigk_bf16.restype = i
+        lib.conflux_sub_matmul_bigk_bf16_workspace_bytes.argtypes = [i, i, i]
+        lib.conflux_sub_matmul_bigk_bf16_workspace_bytes.restype = ll
         lib.conflux_matmul.argtypes = [p, i, p, i, p, i, i, i, i, i, p,
                                        ctypes.POINTER(i)]
         lib.conflux_matmul.restype = i
@@ -249,6 +257,78 @@ def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     SUB_MATMUL_BIGK_LAUNCHES += 1
     if route.value == _K2_ROUTE_WGMMA:
         SUB_MATMUL_BIGK_WGMMA_LAUNCHES += 1
+    return out
+
+
+def _tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """x itself where TMA can read it in place (unit column stride, a row
+    stride that is a multiple of 8 elements, a 16-byte-aligned base), else
+    a copy whose rows are padded to 8 elements (a transposed view such as
+    Cholesky's F[k:k+w, :k].T, or an odd offset)."""
+    rows, cols = x.shape
+    if ((cols <= 1 or x.stride(1) == 1) and x.stride(0) % 8 == 0
+            and x.stride(0) >= cols and x.data_ptr() % 16 == 0):
+        return x
+    buf = torch.empty((rows, (cols + 7) // 8 * 8), dtype=x.dtype,
+                      device=x.device)
+    return buf[:, :cols].copy_(x)
+
+
+def sub_matmul_bigk_bf16(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                         mode: str) -> torch.Tensor:
+    """R - A @ B on the card for bfloat16 A [m, k] and B [k, n], as a new
+    tensor of R's dtype (R float32 in 'bf16', bfloat16 in 'bf16out'); R is
+    read only. K2's bf16-operand entry: the kernel's tensor maps are built
+    on A and B themselves and no split pass runs; an operand TMA cannot
+    read in place is first copied into a padded buffer
+    (`_tma_operand`). The workspace holds split-K's partial products where
+    K splits. With k = 0 the result is a copy of R and nothing is
+    launched."""
+    global SUB_MATMUL_BIGK_BF16_LAUNCHES
+    if mode not in ("bf16", "bf16out"):
+        raise ValueError(f"bf16 operands take 'bf16' or 'bf16out', not "
+                         f"{mode!r}")
+    check_mode(R, mode)
+    if A.dtype != torch.bfloat16 or B.dtype != torch.bfloat16:
+        raise TypeError(f"A and B must be bfloat16, not {A.dtype}, {B.dtype}")
+    if A.dim() != 2 or B.dim() != 2:
+        raise ValueError("sub_matmul_bigk_bf16 takes 2-D tensors")
+    for name, t in (("A", A), ("B", B)):
+        if not t.is_cuda or t.device != R.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {R.device}")
+    _check_2d("R", R, R.device)
+    m, n = R.shape
+    k = A.shape[1]
+    if tuple(A.shape) != (m, k) or tuple(B.shape) != (k, n):
+        raise ValueError(f"shapes R {tuple(R.shape)}, A {tuple(A.shape)}, "
+                         f"B {tuple(B.shape)} do not fit R - A @ B")
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError("a dimension does not fit an int")
+    out = torch.empty((m, n), dtype=R.dtype, device=R.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.copy_(R)
+    A, B = _tma_operand(A), _tma_operand(B)
+    for name, t in (("A", A), ("B", B)):
+        _check_2d(name, t, R.device)
+    lib = _load_bigk()
+    route = ctypes.c_int(-1)
+    with torch.cuda.device(R.device):
+        ws_bytes = lib.conflux_sub_matmul_bigk_bf16_workspace_bytes(m, n, k)
+        ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8,
+                         device=R.device)
+        stream = torch.cuda.current_stream(R.device).cuda_stream
+        err = lib.conflux_sub_matmul_bigk_bf16(
+            R.data_ptr(), R.stride(0), out.data_ptr(), out.stride(0),
+            int(mode == "bf16out"), A.data_ptr(), A.stride(0),
+            B.data_ptr(), B.stride(0), m, n, k, ws.data_ptr(), ws_bytes,
+            stream, ctypes.byref(route))
+    if err != 0:
+        raise RuntimeError("sub_matmul_bigk_bf16 launch failed: "
+                           + lib.conflux_bigk_gemm_error_string(err)
+                           .decode())
+    SUB_MATMUL_BIGK_BF16_LAUNCHES += 1
     return out
 
 

@@ -10,8 +10,13 @@ cluster route up to `cluster_max_m(w)` lanes (one thread-block cluster)
 and on the grid route beyond (one persistent CTA per SM). Its source note
 says what bounds it on the H100 and what each route does about that.
 
-Its plain PyTorch version is `ops/panel._rank1_block_t`; `ops/panel
-._rank1_dispatch` sends CPU tensors there and CUDA tensors here.
+Float64 blocks take K1 in double (`rank1_block_t_f64`,
+`csrc/rank1_panel_f64.cu`): the grid route in double, one route for every
+shape, with its own launch counter.
+
+Its plain PyTorch version is `ops/panel._rank1_block_t`, which serves both
+dtypes; `ops/panel._rank1_dispatch` sends CPU tensors there and CUDA
+tensors here.
 """
 
 from __future__ import annotations
@@ -34,10 +39,15 @@ LAUNCHES_CLUSTER = 0    # one thread-block cluster, pushes between its CTAs
 LAUNCHES_GRID = 0       # one persistent CTA per SM, a grid barrier a column
 LAUNCHES_TILE = 0       # forced blocks: each CTA eliminates its lanes alone
 
+# launches of the double kernel (rank1_panel_f64.cu, the grid route in
+# double, its one route), which float64 blocks take; counted apart
+LAUNCHES_F64 = 0
+
 # conflux_rank1_panel's routes (rank1_panel.cu, Route)
 ROUTES = {1: "cluster", 2: "grid", 3: "tile"}
 
 _lib = None
+_lib_f64 = None
 
 
 def _load() -> ctypes.CDLL:
@@ -61,6 +71,23 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def _load_f64() -> ctypes.CDLL:
+    global _lib_f64
+    if _lib_f64 is None:
+        lib = _build.load("rank1_panel_f64")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.conflux_rank1_panel_f64.argtypes = [p, p, p, p, p, p, p,
+                                                i, i, i, i, p,
+                                                ctypes.POINTER(i)]
+        lib.conflux_rank1_panel_f64.restype = i
+        lib.conflux_rank1_panel_f64_scratch_doubles.argtypes = [i]
+        lib.conflux_rank1_panel_f64_scratch_doubles.restype = i
+        lib.conflux_rank1_panel_f64_error_string.argtypes = [i]
+        lib.conflux_rank1_panel_f64_error_string.restype = ctypes.c_char_p
+        _lib_f64 = lib
+    return _lib_f64
+
+
 def cluster_max_m(w: int) -> int:
     """The largest m whose unforced [w, m] block takes the cluster route on
     the current card; wider blocks take the grid route."""
@@ -73,6 +100,28 @@ def route(w: int, m: int, forced: bool) -> str:
     the cluster route up to cluster_max_m(w) lanes and the grid route
     beyond."""
     return ROUTES[_load().conflux_rank1_panel_route(w, m, int(forced))]
+
+
+def _check_block(Mt, avail_f, forced: bool, j0: int, dtype):
+    """Raise unless Mt [w, m] and avail_f [1, m] are contiguous CUDA
+    tensors of `dtype` on one device, 1 <= m <= MAX_M, and forced pivots
+    j0..j0+w-1 are lanes of the block."""
+    if not Mt.is_cuda or avail_f.device != Mt.device:
+        raise ValueError("rank1_block_t takes CUDA tensors on one device")
+    if Mt.dtype != dtype or avail_f.dtype != dtype:
+        raise TypeError(f"this K1 entry takes {dtype} tensors, not "
+                        f"{Mt.dtype} and {avail_f.dtype}")
+    if Mt.dim() != 2 or tuple(avail_f.shape) != (1, Mt.shape[1]):
+        raise ValueError(f"shapes Mt {tuple(Mt.shape)} and avail "
+                         f"{tuple(avail_f.shape)} are not [w, m] and [1, m]")
+    if not (Mt.is_contiguous() and avail_f.is_contiguous()):
+        raise ValueError("rank1_block_t takes contiguous tensors")
+    w, m = Mt.shape
+    if not (1 <= w and 1 <= m <= MAX_M):
+        raise ValueError(f"block [{w}, {m}] outside 1 <= m <= {MAX_M}")
+    if forced and not 0 <= j0 <= m - w:
+        raise ValueError(f"forced pivots {j0}..{j0 + w - 1} outside the "
+                         f"{m} lanes")
 
 
 def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
@@ -88,21 +137,8 @@ def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
     values in all modes (unforced callers never read them)."""
     global LAUNCHES, LAUNCHES_CLUSTER, LAUNCHES_GRID, LAUNCHES_TILE
     del finish
-    if not Mt.is_cuda or avail_f.device != Mt.device:
-        raise ValueError("rank1_block_t takes CUDA tensors on one device")
-    if Mt.dtype != torch.float32 or avail_f.dtype != torch.float32:
-        raise TypeError("rank1_block_t takes float32 tensors")
-    if Mt.dim() != 2 or tuple(avail_f.shape) != (1, Mt.shape[1]):
-        raise ValueError(f"shapes Mt {tuple(Mt.shape)} and avail "
-                         f"{tuple(avail_f.shape)} are not [w, m] and [1, m]")
-    if not (Mt.is_contiguous() and avail_f.is_contiguous()):
-        raise ValueError("rank1_block_t takes contiguous tensors")
+    _check_block(Mt, avail_f, forced, j0, torch.float32)
     w, m = Mt.shape
-    if not (1 <= w and 1 <= m <= MAX_M):
-        raise ValueError(f"block [{w}, {m}] outside 1 <= m <= {MAX_M}")
-    if forced and not 0 <= j0 <= m - w:
-        raise ValueError(f"forced pivots {j0}..{j0 + w - 1} outside the "
-                         f"{m} lanes")
     lib = _load()
     dev = Mt.device
     out = torch.empty_like(Mt)
@@ -130,4 +166,38 @@ def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
         LAUNCHES_GRID += 1
     elif taken == "tile":
         LAUNCHES_TILE += 1
+    return out, avail_o, piv, ok
+
+
+def rank1_block_t_f64(Mt: torch.Tensor, avail_f: torch.Tensor,
+                      forced: bool = False, j0: int = 0,
+                      finish: bool = False):
+    """K1 in double (csrc/rank1_panel_f64.cu): `rank1_block_t`'s contract
+    for float64 Mt [w, m] and avail_f [1, m], on its one route (the grid
+    route in double) for every shape. Raises on any launch error."""
+    global LAUNCHES_F64
+    del finish
+    _check_block(Mt, avail_f, forced, j0, torch.float64)
+    w, m = Mt.shape
+    lib = _load_f64()
+    dev = Mt.device
+    out = torch.empty_like(Mt)
+    avail_o = torch.empty_like(avail_f)
+    piv = torch.empty(w, dtype=torch.int32, device=dev)
+    ok = torch.empty(w, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.conflux_rank1_panel_f64_scratch_doubles(w),
+                          dtype=torch.float64, device=dev)
+    route_taken = ctypes.c_int(-1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.conflux_rank1_panel_f64(
+            Mt.data_ptr(), avail_f.data_ptr(), out.data_ptr(),
+            avail_o.data_ptr(), piv.data_ptr(), ok.data_ptr(),
+            scratch.data_ptr(), w, m, int(forced), j0, stream,
+            ctypes.byref(route_taken))
+    if err != 0:
+        raise RuntimeError("rank1_panel_f64 launch failed: "
+                           + lib.conflux_rank1_panel_f64_error_string(err)
+                           .decode())
+    LAUNCHES_F64 += 1
     return out, avail_o, piv, ok

@@ -83,10 +83,14 @@ def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                     mode: str) -> torch.Tensor:
     """R - A @ B as a new tensor of R's dtype, for any K: R [m, n] float32
     for 'high'/'bf16', bfloat16 for 'bf16out'; A [m, k] and B [k, n]
-    float32. R is not modified."""
+    float32, or both bfloat16 in 'bf16'/'bf16out' (bf16 storage's
+    operands: on the card K2's bf16-operand entry, which reads them in
+    place). R is not modified."""
     if R.is_cuda:
-        from conflux_tpu_torch.ops.cuda_gemm import sub_matmul_bigk as k2
+        from conflux_tpu_torch.ops import cuda_gemm
 
+        k2 = (cuda_gemm.sub_matmul_bigk_bf16 if A.dtype == torch.bfloat16
+              else cuda_gemm.sub_matmul_bigk)
         return k2(R, A, B, mode)
     if R.device.type == "cpu":
         return _sub_matmul_bigk_t(R, A, B, mode)
@@ -95,12 +99,14 @@ def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 
 def sub_dot(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
             precision: str) -> torch.Tensor:
-    """R - A @ B as a new tensor in a driver's `precision`, R float32: K2
-    (`sub_matmul_bigk`) in 'high' and 'bf16', whose plain version is
+    """R - A @ B as a new tensor in a driver's `precision`: K2
+    (`sub_matmul_bigk`) in 'high' and 'bf16' on a float32 R (A and B
+    float32, or bfloat16 in 'bf16'), whose plain version is
     `R - schur_dot(A, B, precision)` bit for bit; that expression itself in
-    'highest' (IEEE fp32 `torch.mm`) and 'bf16out' (the product rounded to
-    bf16 first, as the JAX drivers form it)."""
-    if precision in ("high", "bf16"):
+    'highest' (IEEE fp32 `torch.mm`), 'bf16out' (the product rounded to
+    bf16 first, as the JAX drivers form it) and on a float64 R (an IEEE
+    f64 `torch.mm`, as the JAX package's x64 mode runs it)."""
+    if precision in ("high", "bf16") and R.dtype == torch.float32:
         return sub_matmul_bigk(R, A, B, precision)
     return R - schur_dot(A, B, precision)
 

@@ -11,7 +11,8 @@ its plain version `_rank1_block_t` (CPU tensors); between blocks the
 trailing panel columns are updated by matrix products in transposed space
 (pivot-lane extraction by a one-hot product, then the multiplier outer
 product). Every product here forms multipliers or factors, so every one
-runs in IEEE fp32.
+runs in IEEE fp32, or in f64 on a float64 panel (whose blocks take K1 in
+double on the card).
 """
 
 from __future__ import annotations
@@ -111,13 +112,15 @@ def _rank1_block_t(Mt: torch.Tensor, availf: torch.Tensor, j0: int,
 
 def _rank1_dispatch(Bt: torch.Tensor, availf: torch.Tensor, j0: int,
                     forced: bool, finish: bool = False):
-    """K1 for a CUDA float32 block, its plain version for a CPU block;
-    anything else raises. There is no fallback between the two."""
+    """K1 for a CUDA block (float32, or K1 in double for float64), its
+    plain version for a CPU block of any real dtype; anything else raises.
+    There is no fallback between the two."""
     if Bt.is_cuda:
-        from conflux_tpu_torch.ops.cuda_panel import rank1_block_t
+        from conflux_tpu_torch.ops import cuda_panel
 
-        Bt2, availf2, pivw, okw = rank1_block_t(Bt, availf, forced, j0,
-                                                finish=finish)
+        k1 = (cuda_panel.rank1_block_t_f64 if Bt.dtype == torch.float64
+              else cuda_panel.rank1_block_t)
+        Bt2, availf2, pivw, okw = k1(Bt, availf, forced, j0, finish=finish)
         return Bt2, availf2, pivw, okw > 0
     if Bt.device.type == "cpu":
         return _rank1_block_t(Bt, availf, j0, forced, finish)

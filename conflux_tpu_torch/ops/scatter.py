@@ -6,7 +6,9 @@ PyTorch counterpart of `conflux_tpu/ops/pallas_scatter.py`
 kernels (ops/cuda_scatter.py, csrc/row_move.cu); CPU tensors go to the
 plain versions `_scatter_rows_t` (`index_copy_`) and `_gather_rows_t`
 (`index_select`); there is no fallback between the two. float32 or
-bfloat16, any row width and any row stride. The TPU's `group` argument
+bfloat16, any row width and any row stride; float64 and complex rows move
+as the float32 words they are made of (a row of n float64 values is a
+row of 2n words, moved bit for bit). The TPU's `group` argument
 and its `n % 128` and `w % group` gates exist for Mosaic's DMA
 descriptors and have no counterpart here.
 """
@@ -48,6 +50,16 @@ def _gather_rows_t(R: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return R.index_select(0, idx)
 
 
+# dtypes whose rows move as float32 words
+_AS_WORDS = (torch.float64, torch.complex64, torch.complex128)
+
+
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """t itself, or for a dtype of _AS_WORDS the float32 view of its rows
+    (unit column stride: [m, n] becomes [m, n * itemsize / 4])."""
+    return t.view(torch.float32) if t.dtype in _AS_WORDS else t
+
+
 def scatter_rows(R: torch.Tensor, src: torch.Tensor,
                  slots: torch.Tensor) -> torch.Tensor:
     """R[slots[i], :] = src[i, :], in place; returns R. The slots must be
@@ -56,11 +68,12 @@ def scatter_rows(R: torch.Tensor, src: torch.Tensor,
     src[i] == R[slots[i]]."""
     if R.is_cuda:
         from conflux_tpu_torch.ops.cuda_scatter import scatter_rows as k5
-
-        return k5(R, src, slots)
-    if R.device.type == "cpu":
-        return _scatter_rows_t(R, src, slots)
-    raise ValueError(f"no row-scatter kernel for device {R.device}")
+    elif R.device.type == "cpu":
+        k5 = _scatter_rows_t
+    else:
+        raise ValueError(f"no row-scatter kernel for device {R.device}")
+    k5(_words(R), _words(src), slots)
+    return R
 
 
 def gather_rows(R: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -68,8 +81,9 @@ def gather_rows(R: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     in [0, m)."""
     if R.is_cuda:
         from conflux_tpu_torch.ops.cuda_scatter import gather_rows as k6
-
-        return k6(R, idx)
-    if R.device.type == "cpu":
-        return _gather_rows_t(R, idx)
-    raise ValueError(f"no row-gather kernel for device {R.device}")
+    elif R.device.type == "cpu":
+        k6 = _gather_rows_t
+    else:
+        raise ValueError(f"no row-gather kernel for device {R.device}")
+    out = k6(_words(R), idx)
+    return out.view(R.dtype) if R.dtype in _AS_WORDS else out

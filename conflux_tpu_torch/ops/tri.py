@@ -1,6 +1,8 @@
 """Triangular kernels: blocked TRSMs, triangular inversion, GEMM precision modes.
 
-PyTorch counterpart of `conflux_tpu/ops/tri.py`. The panel TRSMs are the
+PyTorch counterpart of `conflux_tpu/ops/tri.py`. Every function here takes
+float32 and float64 (and, where the complex layer calls it, complex)
+tensors and computes in their dtype. The panel TRSMs are the
 stable blocked substitution of the JAX package: only <= `_TRSM_SUB`-wide
 diagonal blocks are ever inverted (nilpotent squaring, all matmuls), and
 everything else is a GEMM. Every fp32 matrix product here that forms
@@ -46,10 +48,13 @@ def schur_dot(a: torch.Tensor, b: torch.Tensor, mode: str = "highest",
     hi@hi + hi@lo + lo@hi accumulated in fp32 (the lo@lo term is dropped,
     as XLA's Precision.HIGH drops it). 'bf16': bf16 operands, fp32
     accumulation and result. 'bf16out': 'bf16' rounded once to bf16.
-    bt=True contracts b's last dim (a @ b.T)."""
+    On float64 operands 'highest' and 'high' are both one IEEE f64
+    product: the JAX package's x64 mode runs on the CPU backend, where
+    both precisions are full f64 products (a bf16x3 split would turn f64
+    into bf16x3). bt=True contracts b's last dim (a @ b.T)."""
     if bt:
         b = b.T
-    if mode == "highest":
+    if mode == "highest" or (mode == "high" and a.dtype == torch.float64):
         return torch.mm(a, b)
     if mode == "high":
         ah, al = _split_hi_lo(a)

@@ -9,8 +9,10 @@ psum over 'y' of the A column panel and one over 'x' of the B row panel
 per tile of the contraction (the communication of ScaLAPACK's PB-GEMM),
 and the Frobenius norms are psums of per-rank partial sums: only the
 final scalars reach the host, and no rank ever holds the whole matrix.
-Every product is IEEE fp32 (`precision.ieee_fp32`); the partial sums
-accumulate in float64.
+Every product is IEEE fp32 (`precision.ieee_fp32`) on float32 and bf16
+blocks (bf16 blocks are upcast first, as the JAX package measures bf16
+storage's factors in f32), f64 on float64 blocks and complex on complex
+ones; the partial sums accumulate in float64.
 """
 
 from __future__ import annotations
@@ -20,6 +22,12 @@ import torch
 from conflux_tpu_torch.layout import BlockCyclic, local_row_to_global
 from conflux_tpu_torch.ops.collect import panel_rows_for_columns
 from conflux_tpu_torch.precision import ieee_fp32
+from conflux_tpu_torch.validation import sum_sq
+
+
+def _gate_dtype(t: torch.Tensor):
+    """The dtype a gate computes in: f32 for bf16 blocks, else theirs."""
+    return torch.float32 if t.dtype == torch.bfloat16 else t.dtype
 
 
 def _summa_local(desc: BlockCyclic, A: torch.Tensor,
@@ -69,8 +77,9 @@ def _residual_local(desc: BlockCyclic, m_true: int, n_true: int,
     Ml, Nl = desc.Ml, desc.Nl
     pi, pj, pz = g.pi, g.pj, g.pz
     dev = G.device
-    A = G.float()
-    F = F.float()
+    cdt = _gate_dtype(G)
+    A = G.to(cdt)
+    F = F.to(cdt)
     piv = piv.to(dev)
     slot = local_row_to_global(pi, Px, v, Ml, dev)    # global row slot
     gcol = local_row_to_global(pj, Py, v, Nl, dev)    # global column
@@ -89,7 +98,7 @@ def _residual_local(desc: BlockCyclic, m_true: int, n_true: int,
 
     # L·U by SUMMA on the factors cut out of F by the slot masks
     L = (torch.where(slot[:, None] > gcol[None, :], F, 0.0)
-         + (slot[:, None] == gcol[None, :]).float())
+         + (slot[:, None] == gcol[None, :]).to(cdt))
     U = torch.where(slot[:, None] <= gcol[None, :], F, 0.0)
     LU = _summa_local(desc, L, U)
 
@@ -102,7 +111,7 @@ def _residual_local(desc: BlockCyclic, m_true: int, n_true: int,
     livea = (slot[:, None] < m_true) & (gcol[None, :] < n_true)
     Aa = torch.where(livea, Atrue, 0.0)
     # the products are the same on every layer: layer 0's sums count
-    sums = torch.stack([(R.double() ** 2).sum(), (Aa.double() ** 2).sum()])
+    sums = torch.stack([sum_sq(R), sum_sq(Aa)])
     return comm.psum(sums if pz == 0 else torch.zeros_like(sums),
                      ("x", "y", "z"))
 
@@ -119,8 +128,9 @@ def _chol_residual_local(desc: BlockCyclic, n_true: int, G: torch.Tensor,
     Ml, Nl = desc.Ml, desc.Nl
     pi, pj, pz = g.pi, g.pj, g.pz
     dev = G.device
-    A = comm.psum(G.float(), "z")
-    L = Lg.float()
+    cdt = _gate_dtype(G)
+    A = comm.psum(G.to(cdt), "z")
+    L = Lg.to(cdt)
     LLt = torch.zeros_like(A)
     for k in range(desc.Nt):
         c = (k // Py) * v
@@ -135,7 +145,7 @@ def _chol_residual_local(desc: BlockCyclic, n_true: int, G: torch.Tensor,
     R = torch.where(live, A - LLt, 0.0)
     Aa = torch.where(live, A, 0.0)
     # L lives on layer 0 only: layer 0's sums count
-    sums = torch.stack([(R.double() ** 2).sum(), (Aa.double() ** 2).sum()])
+    sums = torch.stack([sum_sq(R), sum_sq(Aa)])
     return comm.psum(sums if pz == 0 else torch.zeros_like(sums),
                      ("x", "y", "z"))
 

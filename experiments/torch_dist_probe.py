@@ -2,6 +2,7 @@
 on CUDA tensors, and where the rank programs' time goes.
 
     python3 -m experiments.torch_dist_probe --ops
+    python3 -m experiments.torch_dist_probe --dtypes
     python3 -m experiments.torch_dist_probe --breakdown [--n 16384 --v 512]
 
 --ops tries each collective that `comm.Comm` issues on a CUDA tensor
@@ -9,6 +10,12 @@ on CUDA tensors, and where the rank programs' time goes.
 of two ranks of its own (`launch.run_ranks`: an op gloo does not take can
 abort the process), and prints what each one did: the evidence for which
 collectives `comm.Comm` stages through host memory on a gloo world.
+
+--dtypes tries each of those collectives but isend/irecv on CUDA tensors
+of bfloat16, float64, complex64 and complex128 in one gloo world of two
+ranks, and prints whether each ran and gave the right value: the
+evidence for the dtypes `comm.Comm` moves as they are and those it moves
+as their real view.
 
 --breakdown runs chip_smoke's distributed LU and Cholesky at N = 16384
 (lu_25d at the auto variant and 'crout', tournament, and cholesky_25d at
@@ -79,6 +86,73 @@ def _op_rank(op: str, where: str):
         dist.gather(x, parts, dst=0)
         got = parts[1][0] if parts else x[0]
     return f"ok: {got.item():g} on {got.device.type}"
+
+
+DTYPES = ("bfloat16", "float64", "complex64", "complex128")
+# the collectives the rank programs run on other dtypes than float32 (every
+# one but isend/irecv, which Comm stages through the host on gloo + CUDA)
+DTYPE_OPS = tuple(op for op in OPS if op != "isend/irecv")
+
+
+def _dtype_rank(where: str):
+    """Each op of DTYPE_OPS on each dtype of DTYPES in one world of two
+    ranks: {(op, dtype): 'ok: <value rank 0 received>', 'wrong: ...' or
+    'fails: ...'}. Rank r sends r + 1 (+ (r + 1) i for complex)."""
+    import torch
+    import torch.distributed as dist
+
+    r = dist.get_rank()
+    out = {}
+    for name in DTYPES:
+        dt = getattr(torch, name)
+        val = complex(r + 1, r + 1) if dt.is_complex else float(r + 1)
+        for op in DTYPE_OPS:
+            x = torch.full((4,), val, dtype=dt, device=where)
+            try:
+                if op == "all_reduce":
+                    dist.all_reduce(x)
+                    got, want = x[0], 3
+                elif op == "broadcast":
+                    dist.broadcast(x, 0)
+                    got, want = x[0], 1
+                elif op == "all_gather":
+                    parts = [torch.empty_like(x) for _ in range(2)]
+                    dist.all_gather(parts, x)
+                    got, want = parts[1][0], 2
+                elif op == "all_gather_into_tensor":
+                    y = x.new_empty(8)
+                    dist.all_gather_into_tensor(y, x)
+                    got, want = y[4], 2
+                elif op == "reduce_scatter_tensor":
+                    y = x.new_empty(2)
+                    dist.reduce_scatter_tensor(y, x)
+                    got, want = y[0], 3
+                elif op == "all_to_all_single":
+                    y = torch.empty_like(x)
+                    splits = [1, 3] if r == 0 else [3, 1]
+                    dist.all_to_all_single(y, x, splits, splits)
+                    got, want = y[-1], 2
+                else:
+                    parts = ([torch.empty_like(x) for _ in range(2)]
+                             if r == 0 else None)
+                    dist.gather(x, parts, dst=0)
+                    got, want = (parts[1][0] if parts else x[0]), 2
+                if dt.is_complex:
+                    want = complex(want, want)
+                good = got.item() == want
+                out[(op, name)] = (f"{'ok' if good else 'wrong'}: "
+                                   f"{got.item()} on {got.device.type}")
+            except (RuntimeError, TypeError, ValueError) as e:
+                out[(op, name)] = "fails: " + str(e).splitlines()[0][:160]
+    return out
+
+
+def probe_dtypes(where: str) -> dict:
+    """_dtype_rank's findings on rank 0 of one gloo world of two ranks."""
+    from conflux_tpu_torch.launch import run_ranks
+
+    return run_ranks(2, _dtype_rank, where, backend="gloo", device=where,
+                     timeout=120)[0]
 
 
 def probe_ops(where: str) -> dict:
@@ -199,6 +273,7 @@ def main() -> int:
     ap.add_argument("--v", type=int)
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--ops", action="store_true")
+    mode.add_argument("--dtypes", action="store_true")
     mode.add_argument("--breakdown", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -214,6 +289,11 @@ def main() -> int:
     if args.ops:
         for op, what in probe_ops(args.device).items():
             print(f"gloo {op:24s} on {args.device}: {what}", flush=True)
+        return 0
+    if args.dtypes:
+        for (op, dt), what in probe_dtypes(args.device).items():
+            print(f"gloo {op:24s} {dt:10s} on {args.device}: {what}",
+                  flush=True)
         return 0
     import chip_smoke
 

@@ -115,15 +115,19 @@ def test_cholesky_25d_matches_jax(port, shape, i):
     assert validation.cholesky_residual_dense(Ap, Lt) <= GATE
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int32])
 def test_cholesky_25d_other_dtypes_raise(dtype):
+    # bfloat16 and float64 run (tests/test_torch_dtypes.py,
+    # tests/test_torch_f64.py)
     from conflux_tpu_torch.cholesky.p25d import cholesky_25d
+    from conflux_tpu_torch.errors import ErrorCode
     from conflux_tpu_torch.grid import make_grid
     from conflux_tpu_torch.layout import BlockCyclic
 
     desc = BlockCyclic.create(16, 16, 8, make_grid((1, 1, 1), device="cpu"))
-    with pytest.raises(ConfluxError, match="ROADMAP item 7"):
+    with pytest.raises(ConfluxError, match="float32, float64 or") as e:
         cholesky_25d(torch.zeros(16, 16, dtype=dtype), desc)
+    assert e.value.code == ErrorCode.INVALID_TYPE
 
 
 def test_cholesky_25d_one_rank_runs_single_device(rng):

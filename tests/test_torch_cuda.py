@@ -711,3 +711,112 @@ def test_tf32_on_leaves_results_bit_identical(card, api):
                                 torch.backends.mkldnn.matmul), saved):
             knob.fp32_precision = value
     assert all(torch.equal(r, g) for r, g in zip(ref, got))
+
+
+# K1 in double (csrc/rank1_panel_f64.cu, one route): the shapes of the
+# float32 route classes (tile-sized forced blocks, cluster-sized blocks, a
+# grid-sized one, and one wider than its shared-memory slab) in each mode
+K1_F64_CASES = ([(128, m, mode, 0) for m in (1000, 2048, 32768)
+                 for mode in MODES]
+                + [(128, 1536, "forced", 1408), (64, 1536, "forced", 64),
+                   (64, 40000, "unforced", 0)])
+
+
+@pytest.mark.parametrize("w,m,mode,j0", K1_F64_CASES)
+def test_k1_f64_matches_plain_on_card(card, w, m, mode, j0):
+    Mt, avail = _block(m, w, mode, seed=m + j0 + 7, j0=j0)
+    Mt = torch.from_numpy(Mt).to(card, torch.float64)
+    avail = torch.from_numpy(avail).to(card, torch.float64)
+    forced, finish = mode == "forced", mode == "finish"
+    ref = _rank1_block_t(Mt, avail, j0, forced, finish)
+    before = (cuda_panel.LAUNCHES, cuda_panel.LAUNCHES_F64)
+    got = cuda_panel.rank1_block_t_f64(Mt, avail, forced, j0, finish)
+    torch.cuda.synchronize()
+    # its own counter moves, the float32 kernel's does not
+    assert (cuda_panel.LAUNCHES, cuda_panel.LAUNCHES_F64) == (
+        before[0], before[1] + 1)
+    assert got[0].dtype == torch.float64 and got[1].dtype == torch.float64
+    assert torch.equal(ref[2], got[2].long())
+    assert torch.equal(ref[3], got[3] > 0)
+    assert torch.equal(ref[1], got[1])
+    keep = torch.ones(m, dtype=torch.bool, device=card)
+    if mode == "unforced":
+        keep[ref[2]] = False      # stale in the plain version, unread
+    # the updates in another order than the two-level plain version: a few
+    # f64 roundings
+    diff = (ref[0][:, keep] - got[0][:, keep]).abs().max()
+    assert diff <= 1e-12 * ref[0][:, keep].abs().max()
+
+
+def test_k1_f64_dispatch_never_reaches_the_plain_version(card, monkeypatch):
+    # a float64 panel on the card runs K1 in double only
+    from conflux_tpu_torch.ops import panel
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain K1 ran on a CUDA block")
+
+    monkeypatch.setattr(panel, "_rank1_block_t", refuse)
+    g = torch.Generator(device=card).manual_seed(5)
+    A = torch.randn(600, 200, generator=g, device=card, dtype=torch.float64)
+    before = cuda_panel.LAUNCHES_F64
+    piv, ok, M = panel.factor_panel(A, torch.ones(600, dtype=torch.bool,
+                                                  device=card), 200)
+    assert cuda_panel.LAUNCHES_F64 > before and bool(ok.all())
+    assert M.dtype == torch.float64
+
+
+# K2's bf16-operand entry: (m, n, k) at a crout panel update, a split-K
+# shape, a ragged one, and operands TMA cannot read in place (an odd row
+# stride, a transposed view), which the wrapper copies first
+K2_BF16_CASES = [(2048, 1536, 1536, "plain"), (1536, 512, 30720, "plain"),
+                 (1000, 300, 200, "plain"), (777, 300, 500, "odd"),
+                 (640, 256, 2500, "transposed")]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "bf16out"])
+@pytest.mark.parametrize("m,n,k,layout", K2_BF16_CASES)
+def test_k2_bf16_entry_matches_plain_on_card(card, m, n, k, layout, mode):
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    if layout == "odd":
+        A = torch.randn(m, k + 3, generator=g, device=card).to(
+            torch.bfloat16)[:, 3:]
+    else:
+        A = torch.randn(m, k, generator=g, device=card).to(torch.bfloat16)
+    if layout == "transposed":
+        B = torch.randn(n, k, generator=g, device=card).to(torch.bfloat16).T
+    else:
+        B = torch.randn(k, n, generator=g, device=card).to(torch.bfloat16)
+    R = torch.randn(m, n, generator=g, device=card)
+    if mode == "bf16out":
+        R = R.to(torch.bfloat16)
+    R0 = R.clone()
+    ref = _sub_matmul_bigk_t(R, A, B, mode)
+    before = (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
+              cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES)
+    got = cuda_gemm.sub_matmul_bigk_bf16(R, A, B, mode)
+    torch.cuda.synchronize()
+    assert (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
+            cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES) == (before[0],
+                                                         before[1] + 1)
+    assert torch.equal(R, R0) and got.dtype == R.dtype
+    # the same bf16 operand values: fp32 summation order only (plus one
+    # bf16 ulp of the result where R is bf16)
+    tol = 1e-5 * float(torch.mm(A.float().abs(), B.float().abs()).max())
+    d = (got.float() - ref.float()).abs()
+    if mode == "bf16out":
+        assert bool((d <= _bf16_ulp(ref) + tol).all())
+    else:
+        assert float(d.max()) <= tol
+    assert torch.equal(got, cuda_gemm.sub_matmul_bigk_bf16(R, A, B, mode))
+
+
+def test_k2_bf16_entry_checks_its_inputs(card):
+    R = torch.zeros(64, 64, device=card)
+    A = torch.zeros(64, 32, device=card, dtype=torch.bfloat16)
+    B = torch.zeros(32, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        cuda_gemm.sub_matmul_bigk_bf16(R, A, B, "high")
+    with pytest.raises(TypeError):
+        cuda_gemm.sub_matmul_bigk_bf16(R, A.float(), B, "bf16")
+    with pytest.raises(TypeError):
+        cuda_gemm.sub_matmul_bigk_bf16(R, A, B, "bf16out")   # R float32

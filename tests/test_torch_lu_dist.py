@@ -163,12 +163,16 @@ def test_lu_25d_one_rank_runs_single_device(rng):
     assert torch.equal(perm, ps) and torch.equal(F, Fs)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int32])
 def test_lu_25d_other_dtypes_raise(dtype):
+    # bfloat16 and float64 run (tests/test_torch_dtypes.py,
+    # tests/test_torch_f64.py)
+    from conflux_tpu_torch.errors import ErrorCode
     from conflux_tpu_torch.grid import make_grid
     from conflux_tpu_torch.layout import BlockCyclic
     from conflux_tpu_torch.lu.p25d import lu_25d
 
     desc = BlockCyclic.create(16, 16, 8, make_grid((1, 1, 1), device="cpu"))
-    with pytest.raises(ConfluxError, match="ROADMAP item 7"):
+    with pytest.raises(ConfluxError, match="float32, float64 or") as e:
         lu_25d(torch.zeros(16, 16, dtype=dtype), desc)
+    assert e.value.code == ErrorCode.INVALID_TYPE

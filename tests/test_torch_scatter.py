@@ -99,8 +99,10 @@ def test_row_moves_reject_what_the_kernels_do_not_take():
     idx = torch.arange(3)
     with pytest.raises(TypeError, match="int64"):
         tscatter.gather_rows(R, idx.int())
+    # float64 and complex rows move as float32 words
+    # (test_wide_rows_move_as_words); float16 has no such view
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tscatter.gather_rows(R.double(), idx)
+        tscatter.gather_rows(R.half(), idx)
     with pytest.raises(ValueError, match="does not fit"):
         tscatter.scatter_rows(R, torch.zeros(3, 5), idx)
     # the kernels' wrappers refuse CPU tensors and launch nothing
@@ -112,3 +114,21 @@ def test_row_moves_reject_what_the_kernels_do_not_take():
         cuda_scatter.scatter_rows(R, torch.zeros(3, 4), idx)
     assert (cuda_scatter.SCATTER_ROWS_LAUNCHES,
             cuda_scatter.GATHER_ROWS_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex64,
+                                   torch.complex128])
+def test_wide_rows_move_as_words(rng, dtype):
+    # float64 and complex rows move as the float32 words they are made of
+    # (the kernels take float32): bit for bit, strided column slices too
+    R = torch.from_numpy(rng.standard_normal((40, 30))).to(dtype)
+    idx = torch.from_numpy(rng.choice(40, 12, replace=False))
+    got = tscatter.gather_rows(R[:, 5:25], idx)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, R[idx, 5:25])
+    S = R.clone()
+    src = torch.from_numpy(rng.standard_normal((12, 30))).to(dtype)
+    assert tscatter.scatter_rows(S, src, idx) is S
+    want = R.clone()
+    want[idx] = src
+    assert torch.equal(S, want)

@@ -21,7 +21,8 @@ from conflux_tpu_torch import profiler
 from conflux_tpu_torch.cholesky.p25d import cholesky_25d, pcholesky
 from conflux_tpu_torch.cholesky.profiled import cholesky_25d_profiled
 from conflux_tpu_torch.comm import SUBSETS
-from conflux_tpu_torch.grid import make_grid
+from conflux_tpu_torch.grid import choose_grid_cholesky, choose_grid_lu, \
+    make_grid
 from conflux_tpu_torch.layout import (
     BlockCyclic,
     distribute,
@@ -29,6 +30,7 @@ from conflux_tpu_torch.layout import (
     retile,
     undistribute,
 )
+from conflux_tpu_torch.lu.cp25d import clu_25d
 from conflux_tpu_torch.lu.p25d import lu_25d, plu
 from conflux_tpu_torch.lu.profiled import lu_25d_profiled
 from conflux_tpu_torch.pgemm import pchol_residual_25d, pgemm, \
@@ -44,6 +46,14 @@ def _jax_free():
 
 def _numpy(t):
     return None if t is None else t.numpy()
+
+
+def _dense(t):
+    """numpy of a tensor, a bf16 one read as float32 (numpy has no
+    bfloat16); None stays None."""
+    if t is None:
+        return None
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def layout_cases(shape, mats):
@@ -340,3 +350,64 @@ def dist_rest_cases(cfg):
                                     "report": report, "Nt": desc.Nt}
     out["jax_free"] = _jax_free()
     return out
+
+
+def dtype_cases(cases):
+    """Each case dict (kind 'lu', 'chol', 'clu', 'pdgetrf', 'pdpotrf' or
+    'retile'; A as numpy; dtype the torch dtype's name, the tensor made
+    from A by torch; shape, v, variant, precision, method, shape2, v2 as
+    they apply) on its grid of this world: the distributed factorization,
+    this rank's record of its collectives, its distributed gate on every
+    rank, and rank 0's dense factor (bf16 as float32) with its dtype and
+    the pivots; for 'retile', whether this rank's destination block
+    equals `distribute`'s."""
+    grid_of = _grids()
+    out = []
+    for c in cases:
+        A = torch.from_numpy(c["A"]).to(getattr(torch, c["dtype"]))
+        kind = c["kind"]
+        perm = None
+        if kind == "retile":
+            # from the grid `shape` to `shape2` at tile v2; a rank idle in
+            # the source names the dtype it cannot read off a block
+            src = BlockCyclic.create(*A.shape, c["v"], grid_of(c["shape"]))
+            dst = BlockCyclic.create(*A.shape, c["v2"], grid_of(c["shape2"]))
+            G2 = retile(distribute(A, src), src, dst, A.dtype)
+            out.append({"equal": None if G2 is None
+                        else bool(torch.equal(G2, distribute(A, dst))),
+                        "dtype": None if G2 is None else str(G2.dtype)})
+            continue
+        if kind in ("pdgetrf", "pdpotrf"):
+            # the grid pdgetrf / pdpotrf choose over the world's ranks, on
+            # the CPU; the tile is theirs
+            import torch.distributed as dist
+
+            P = dist.get_world_size()
+            shape = (choose_grid_lu(*A.shape, P) if kind == "pdgetrf"
+                     else choose_grid_cholesky(P, A.shape[0]))
+            f = (pdgetrf if kind == "pdgetrf" else pdpotrf)(
+                A, grid_of(shape))
+            desc, F, perm, G = f.desc, f.data, f.perm, None
+            records = []
+        else:
+            grid = grid_of(c["shape"])
+            desc = BlockCyclic.create(A.shape[0], A.shape[1], c["v"], grid)
+            G = distribute(A, desc)
+            grid.comm.record.clear()
+            if kind == "lu":
+                F, perm = lu_25d(G, desc, "tournament", c["precision"],
+                                 c["variant"])
+            elif kind == "clu":
+                F, perm = clu_25d(G, desc, c["method"])
+            else:
+                F = cholesky_25d(G, desc, c["precision"], c["variant"])
+            records = list(grid.comm.record)
+        if G is None:
+            G = distribute(A, desc)
+        gate = (cholesky_residual_dist(G, F, desc) if perm is None
+                else lu_residual_dist(G, F, perm, desc))
+        out.append({"F": _dense(undistribute(F, desc)),
+                    "dtype": None if F is None else str(F.dtype),
+                    "perm": _numpy(perm), "gate": gate, "v": desc.v,
+                    "grid": str(desc.grid), "records": records})
+    return {"cases": out, "jax_free": _jax_free()}
