@@ -81,8 +81,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      both at N = 8192 on (2, 2, 2); pdgetrf and pdpotrf at their default
      grid, tile and variant, 'highest', N = 8192; and at N = 8192,
      v = 256 on (2, 2, 2), lu_25d 'windowed' and 'crout' and cholesky_25d
-     (auto variant) under bf16 storage and in float64, and complex64
-     clu_25d, each gated by the JAX package's bound for its dtype. Each run's launch counts
+     (auto variant) under bf16 storage and in float64, and at N = 4096
+     complex64 clu_25d, each gated by the JAX package's bound for its
+     dtype. Each run's launch counts
      are reset just before its factorization and read just after, K1's per
      route and K3's held on every rank to the counts derived from the step
      loops (`dist_k1_blocks`); each is gated on every rank by the SUMMA
@@ -97,6 +98,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      whose pivots must equal the single-device lu_factor's. The walls are
      of 8 processes sharing one card with gloo moving every collective
      through host memory: not a multi-GPU time.
+ 15. stepped (between dtypes and dist): the stepped drivers, one run
+     each, at N = 65536 (49152 where the host's memory cannot hold A and F
+     in f32), v = 1024, 'high': lu_factor_stepped flat in f32 on the
+     native-filled random_matrix with out='host' (the card's peak must
+     stay within 1.3 copies of A) and in bf16 storage with out='device'
+     (held to bf16 storage's ||PA - LU||_F / ||A||_F < 0.05),
+     cholesky_stepped f32 on spd_matrix with out='host', and the crout
+     stepped LU at N = 32768; each with its wall (upload and host stream
+     included), device peak and launches held to its step loop
+     (`_stepped_want`), gated by the streaming blocked gates on the card;
+ 16. cli (last): the front ends through their main(), as a user runs
+     them: conflux_miniapp on the main path (-p 1x1x1, in this process,
+     'high'; its launches held to three crout factorizations) and on a
+     (2, 2, 2) grid of 8 ranks it starts itself, cholesky_miniapp on
+     (2, 2, 2), a profiled LU at N = 4096, the Cholesky helper's files
+     with the port's float64 cholesky, and the sweep of
+     configs/params_example.ini with its csv in a temporary directory;
+     every `_result_` line checked field by field, every time > 0, every
+     residual <= 1e-6.
 
 Each kernel phase times the kernel, its plain version and, where one
 PyTorch call computes the same function, that call (the kernel's
@@ -129,25 +149,47 @@ import numpy as np
 
 N, V = 32768, 1536
 REPS = 3
-# K1 launches per N=32768 v=1536 factorization (128-wide blocks): crout
-# runs 21 panels of 1536 columns at 12 blocks, then one of 512 at 4; flat
-# runs each panel twice (the unforced search and the forced refactor of
-# the pivot rows); Cholesky's lu_nopivot runs 64-wide blocks
-K1_CROUT = (N // V) * (V // 128) + (N % V) // 128
-K1_FLAT = 2 * K1_CROUT
-K1_CHOLESKY = (N // V) * (V // 64) + (N % V) // 64
-# K3 launches per flat factorization: one per step with k + w < n
-STEPS = -(-N // V)         # 22: 21 panels of 1536 columns, one of 512
-K3_FLAT = STEPS - 1
-# split and swap run each panel through factor_panel: the unforced search,
-# then the forced refactor of the pivot rows, as on flat
-K1_COMPACT = K1_FLAT
-# K2 on every crout compaction ('gather', split and swap): one panel
-# update per step with k > 0 (21) and one pivot-row refresh per step with
-# k > 0 and k + w < n (20)
-K2_COMPACT = (STEPS - 1) + (STEPS - 2)
-# K2 on Cholesky: one panel update per step with k > 0
-K2_CHOLESKY = STEPS - 1
+
+
+def k1_blocks(path: str, n: int = N, v: int = V):
+    """(w, m, forced) of every K1 block of one n, v factorization of
+    `path`, from its step loop: step k factors a panel of w = min(v, n - k)
+    columns over the m = n - k live rows in 128-wide blocks (the stepped
+    flat LU over all n rows: it never compacts); flat, swap and split
+    (and the stepped flat) then refactor the w gathered pivot rows,
+    forced, in [128, w] blocks; Cholesky factors each [w, w] diagonal
+    tile, forced, in [64, w] blocks."""
+    blocks = []
+    for k in range(0, n, v):
+        w = min(v, n - k)
+        if path.endswith("cholesky"):
+            blocks += [(64, w, True)] * (w // 64)
+            continue
+        m = n if path == "stepped flat" else n - k
+        blocks += [(128, m, False)] * (w // 128)
+        if not path.endswith("crout"):
+            blocks += [(128, w, True)] * (w // 128)
+    return blocks
+
+
+def loop_launches(path: str, n: int = N, v: int = V) -> dict:
+    """Each kernel's launches in one n, v factorization of `path` (a main
+    path or a stepped one), from its step loop: K1's one per block of
+    `k1_blocks`; K3's one per flat step with k + w < n; K2's one panel
+    update per crout-family step with k > 0 (crout, swap, split and the
+    stepped crout) plus one pivot-row refresh per step with k > 0 and
+    k + w < n, and one panel update per Cholesky step with k > 0."""
+    steps = -(-n // v)
+    crout = path.endswith("crout") or path in ("swap", "split")
+    return {"rank1_panel": len(k1_blocks(path, n, v)),
+            "schur_update": steps - 1 if "flat" in path else 0,
+            "sub_matmul_bigk": ((steps - 1) + (steps - 2) if crout
+                                else steps - 1 if path.endswith("cholesky")
+                                else 0)}
+
+
+# at N=32768, v=1536: 22 steps, 21 panels of 1536 columns, one of 512
+STEPS = -(-N // V)
 # swap, per step: K6 gathers lu_top = M[piv] and Rpiv = R[piv]; where the
 # kept prefix is not empty (every step but the last), K6 gathers the
 # movers and K5 scatters them
@@ -162,16 +204,12 @@ KERNELS = ("rank1_panel", "schur_update", "sub_matmul_bigk", "matmul",
            "scatter_rows", "gather_rows", "rank1_panel_f64",
            "sub_matmul_bigk_bf16")
 # launches per factorization of each path; a kernel left out runs 0 times
-PATH_LAUNCHES = {
-    "crout": {"rank1_panel": K1_CROUT, "sub_matmul_bigk": K2_COMPACT},
-    "flat": {"rank1_panel": K1_FLAT, "schur_update": K3_FLAT},
-    "cholesky": {"rank1_panel": K1_CHOLESKY,
-                 "sub_matmul_bigk": K2_CHOLESKY},
-    "swap": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
-             "scatter_rows": K5_SWAP, "gather_rows": K6_SWAP},
-    "split": {"rank1_panel": K1_COMPACT, "sub_matmul_bigk": K2_COMPACT,
-              "gather_rows": K6_SPLIT},
-}
+# (split and swap run each panel through factor_panel as flat does, and
+# the big-K products of crout)
+PATH_LAUNCHES = {p: loop_launches(p)
+                 for p in ("crout", "flat", "cholesky", "swap", "split")}
+PATH_LAUNCHES["swap"].update(scatter_rows=K5_SWAP, gather_rows=K6_SWAP)
+PATH_LAUNCHES["split"]["gather_rows"] = K6_SPLIT
 # the dtype paths of the dtypes phase, each with the path whose K1 blocks
 # it runs: bf16 storage (K1 in f32 on the upcast panels; crout's big-K
 # products on K2's bf16-operand entry, flat's trailing update K3 in
@@ -182,13 +220,18 @@ PATH_LAUNCHES = {
 # storage keeps the library's bf16 pass: K2's bf16-operand entry was
 # slower than torch.mm(out_dtype=float32) at the path's first and last
 # step shapes on the H100 (phase_k2_bf16, cholesky/single.py).
+_PL = PATH_LAUNCHES
 DTYPE_PATHS = {
-    "bf16 crout": ("flat", {"rank1_panel": K1_FLAT,
-                            "sub_matmul_bigk_bf16": K2_COMPACT}),
-    "bf16 flat": ("flat", {"rank1_panel": K1_FLAT, "schur_update": K3_FLAT}),
-    "bf16 cholesky": ("cholesky", {"rank1_panel": K1_CHOLESKY}),
-    "f64 crout": ("crout", {"rank1_panel_f64": K1_CROUT}),
-    "f64 cholesky": ("cholesky", {"rank1_panel_f64": K1_CHOLESKY}),
+    "bf16 crout": ("flat", {
+        "rank1_panel": _PL["flat"]["rank1_panel"],
+        "sub_matmul_bigk_bf16": _PL["crout"]["sub_matmul_bigk"]}),
+    "bf16 flat": ("flat", _PL["flat"]),
+    "bf16 cholesky": ("cholesky",
+                      {"rank1_panel": _PL["cholesky"]["rank1_panel"]}),
+    "f64 crout": ("crout",
+                  {"rank1_panel_f64": _PL["crout"]["rank1_panel"]}),
+    "f64 cholesky": ("cholesky",
+                     {"rank1_panel_f64": _PL["cholesky"]["rank1_panel"]}),
     "c64 clu": (None, {}),
 }
 # the complex LU runs at N cut to half: its panel is the JAX package's
@@ -204,25 +247,6 @@ DTYPE_GATES = {"bf16 crout": 0.05 / N, "bf16 flat": 0.05 / N,
                "f64 cholesky": 1e-14, "c64 clu": 1e-6}
 
 
-def k1_blocks(path: str):
-    """(w, m, forced) of every K1 block of one N, V factorization of
-    `path`, from its step loop: step k factors a panel of w = min(V, N - k)
-    columns over the m = N - k live rows in 128-wide blocks; flat, swap
-    and split then refactor the w gathered pivot rows, forced, in [128, w]
-    blocks; Cholesky factors each [w, w] diagonal tile, forced, in [64, w]
-    blocks."""
-    blocks = []
-    for k in range(0, N, V):
-        w = min(V, N - k)
-        if path == "cholesky":
-            blocks += [(64, w, True)] * (w // 64)
-            continue
-        blocks += [(128, N - k, False)] * (w // 128)
-        if path != "crout":
-            blocks += [(128, w, True)] * (w // 128)
-    return blocks
-
-
 K1_ROUTES = ("cluster", "grid", "tile")
 
 
@@ -231,11 +255,7 @@ def k1_route_launches(route) -> dict:
     route(w, m, forced) names the route a block takes on this card."""
     out = {}
     for path in PATH_LAUNCHES:
-        blocks = k1_blocks(path)
-        if len(blocks) != PATH_LAUNCHES[path]["rank1_panel"]:
-            fail(f"{path}: {len(blocks)} K1 blocks from the step loop, "
-                 f"{PATH_LAUNCHES[path]['rank1_panel']} expected")
-        taken = [route(*b) for b in blocks]
+        taken = [route(*b) for b in k1_blocks(path)]
         out[path] = {f"rank1_panel {r}": taken.count(r) for r in K1_ROUTES}
     return out
 
@@ -1563,8 +1583,9 @@ def _dist_runs(n: int, v: int):
     each factorization of the dist phase; shape and v None: the entry
     points' defaults (pdgetrf / pdpotrf). The dtype runs: 'windowed' and
     'crout' LU and the auto-variant Cholesky under bf16 storage and in
-    float64, and the complex64 LU, at N / 2 and v / 2 (l = v / (2 Pz) =
-    128: K3 runs every bf16 'windowed' step)."""
+    float64, at N / 2 and v / 2 (l = v / (2 Pz) = 128: K3 runs every
+    bf16 'windowed' step), and the complex64 LU at N / 4 and v / 2 (its
+    eager per-column panel loop took 54 s of the phase at N / 2)."""
     half = n // 2
     dtype_runs = tuple(
         run + (dtype,)
@@ -1594,7 +1615,7 @@ def _dist_runs(n: int, v: int):
         ("lu_25d fori", "lu", DIST_GRID, half, v, "high", False,
          "the profiled run's unprofiled twin"),
     )) + dtype_runs + (
-        ("clu_25d c64", "clu", DIST_GRID, half, v // 2, None, "fori",
+        ("clu_25d c64", "clu", DIST_GRID, n // 4, v // 2, None, "fori",
          "tournament, '4m' products, complex64", "complex64"),)
 
 
@@ -1691,7 +1712,8 @@ def _dist_rank(n: int, v: int, check):
     grids = {DIST_GRID: make_grid(DIST_GRID, device="cuda"),
              DIST_CROUT_GRID: make_grid(DIST_CROUT_GRID, device="cuda")}
     out = {"rank": dist.get_rank(), "device": str(grids[DIST_GRID].device)}
-    inputs = {m: _dist_inputs(m, "cuda") for m in (n, n // 2)}
+    inputs = {m: _dist_inputs(m, "cuda")
+              for m in sorted({run[3] for run in _dist_runs(n, v)})}
     kept = {}
     for (name, algorithm, shape, m, vv, precision, unroll,
          _, dtype) in _dist_runs(n, v):
@@ -1938,11 +1960,358 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
     return sums
 
 
+# the stepped drivers (lu/stepped.py, cholesky/stepped.py) at the size
+# they exist for: an N = 65536 f32 matrix (17.2 GB) whose in-memory
+# factorization (about four copies at its peak) an 80 GB card cannot
+# hold; v = 1024, the drivers' default; N cut to STEP_N_SMALL where the
+# host cannot hold A, F and the input of the next run in f32; the crout
+# stepped LU (two copies) at the main paths' N
+STEP_N, STEP_N_SMALL, STEP_V = 65536, 49152, 1024
+STEP_CROUT_N = N
+# the flat f32 run's device peak, in copies of A: one working buffer, the
+# step's temporaries and one row block of the stream to the host
+STEP_PEAK = 1.3
+# bf16 storage's bound on ||PA - LU||_F / ||A||_F (PERF.md §2, the JAX
+# package's tests/test_single_device.py:271-290)
+STEP_BF16_GATE = 0.05
+
+
+def _loop_want(path: str, n: int, v: int) -> dict:
+    """Each counter's launches in one n, v run of a stepped path (or of
+    'crout', the main path): `loop_launches`, with K1's per route on this
+    card and K3's and K2's on their wgmma route."""
+    from conflux_tpu_torch.ops import cuda_panel
+
+    path = path.replace(" bf16", "")
+    want = {name: 0 for name in _counters()}
+    want.update(loop_launches(path, n, v))
+    taken = [cuda_panel.route(*b) for b in k1_blocks(path, n, v)]
+    for r in K1_ROUTES:
+        want[f"rank1_panel {r}"] = taken.count(r)
+    want["schur_update wgmma"] = want["schur_update"]
+    want["sub_matmul_bigk wgmma"] = want["sub_matmul_bigk"]
+    return want
+
+
+def _stepped_run(fn, *args, **kwargs):
+    """One run of fn on a card cleared of cached blocks: (ms between two
+    CUDA events around the call, its result, its launches, the device's
+    peak memory)."""
+    import torch
+
+    from conflux_tpu_torch.timing import timed_run
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ms, out = timed_run(lambda: fn(*args, **kwargs))
+    counts = _counts()
+    return ms, out, counts, torch.cuda.max_memory_allocated()
+
+
+def _need_native(phase: str):
+    """Fail unless the native host library is loaded: without it
+    `io.random_matrix` fills a matrix of 2^22 entries or more from numpy,
+    not the JAX package's (native) matrix."""
+    from conflux_tpu_torch import native
+
+    if not native.available():
+        fail(f"{phase}: the native host library did not build or load, so "
+             "random_matrix would not fill the JAX package's matrix")
+    print(f"{phase}: native host library loaded, {native.num_threads()} "
+          "OpenMP threads")
+
+
+def _host_perm_ok(perm, n: int) -> bool:
+    return bool(np.array_equal(np.sort(np.asarray(perm)), np.arange(n)))
+
+
+def phase_stepped(smi: str):
+    """The stepped drivers, one run each: lu_factor_stepped flat in f32
+    (out='host', on the native-filled random_matrix; device peak within
+    STEP_PEAK copies of A) and in bf16 storage (out='device'),
+    cholesky_stepped f32 (out='host', on spd_matrix) at STEP_N, and the
+    crout stepped LU at STEP_CROUT_N; each with its wall, device peak
+    memory and launches held to the step loop, gated by the streaming
+    blocked gates on the card. Returns each run's launches."""
+    import os
+
+    import torch
+
+    from conflux_tpu_torch.cholesky.stepped import cholesky_stepped
+    from conflux_tpu_torch.io import random_matrix, spd_matrix
+    from conflux_tpu_torch.lu.stepped import lu_factor_stepped
+    from conflux_tpu_torch.validation import cholesky_residual_blocked, \
+        lu_residual_blocked
+
+    mem = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    # A and F in f32, and the next run's input beside them
+    n = STEP_N if mem >= 3 * STEP_N ** 2 * 4 else STEP_N_SMALL
+    print(f"host MemTotal {mem / 2 ** 30:.1f} GiB: the stepped runs take "
+          f"N={n}" + ("" if n == STEP_N else f" (cut from {STEP_N}: the "
+                      "host cannot hold A and F in f32)"))
+    out = {}
+
+    def report(tag, n, ms, peak, copies, counts, gate, gate_s, bound,
+               flops, what):
+        path = tag.split(" out=")[0]
+        want = _loop_want(path, n, STEP_V)
+        _expect([counts], want, f"{tag} N={n}")
+        out[path] = counts
+        print(f"{tag} N={n} v={STEP_V} 'high' on {smi}: wall {ms:.1f} ms "
+              f"({what}), {flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s, device "
+              f"peak {peak / 2 ** 30:.3f} GiB = {copies:.3f} copies of A, "
+              f"launches {{K1: {want['rank1_panel']} (" + ", ".join(
+                  f"{r} {want['rank1_panel ' + r]}" for r in K1_ROUTES)
+              + f"), K3: {want['schur_update']}, K2: "
+              f"{want['sub_matmul_bigk']}}} as derived from the step loop, "
+              f"residual {gate:.3e} (bound {bound:.3e}) by the streaming "
+              f"gate in {gate_s:.1f} s")
+        if not gate <= bound:
+            fail(f"{tag} N={n}: residual {gate} over {bound}")
+
+    lu_flops = 2.0 / 3.0 * n ** 3
+    _need_native("stepped")
+    t0 = time.perf_counter()
+    A = random_matrix(n, n)
+    print(f"stepped: random_matrix({n}, {n}) {A.dtype} in "
+          f"{time.perf_counter() - t0:.1f} s (native fill)")
+    ms, (F, perm), counts, peak = _stepped_run(
+        lu_factor_stepped, A, STEP_V, "high", out="host")
+    copies = peak / A.nbytes
+    if not (isinstance(F, np.ndarray) and F.shape == A.shape
+            and F.dtype == np.float32 and _host_perm_ok(perm, n)):
+        fail(f"stepped flat: F {type(F)} {getattr(F, 'shape', None)} or "
+             "perm is not a permutation")
+    if not copies <= STEP_PEAK:
+        fail(f"stepped flat: device peak {peak} B = {copies:.3f} copies "
+             f"of A, over {STEP_PEAK}")
+    t0 = time.perf_counter()
+    gate = lu_residual_blocked(A, F, perm)
+    report("stepped flat out=host", n, ms, peak, copies, counts, gate,
+           time.perf_counter() - t0, RESIDUAL_GATE, lu_flops,
+           "upload, factorization and the host stream of F")
+    del F, perm
+
+    Ab = torch.from_numpy(A).to(torch.bfloat16)     # the factored matrix
+    del A
+    ms, (F, perm), counts, peak = _stepped_run(
+        lu_factor_stepped, Ab, STEP_V, "high", out="device")
+    if not (F.is_cuda and F.dtype == torch.bfloat16
+            and _host_perm_ok(perm.cpu(), n)):
+        fail(f"stepped flat bf16: F {F.dtype} on {F.device} or perm is "
+             "not a permutation")
+    t0 = time.perf_counter()
+    gate = lu_residual_blocked(Ab, F, perm) * n       # un-normalised
+    report("stepped flat bf16 out=device", n, ms, peak, peak / Ab.nbytes,
+           counts, gate, time.perf_counter() - t0, STEP_BF16_GATE,
+           lu_flops, "upload, factorization and F = R[perm] on the card; "
+           "the residual is ||PA - LU||_F / ||A||_F")
+    del Ab, F, perm
+
+    S = spd_matrix(n)
+    ms, L, counts, peak = _stepped_run(
+        cholesky_stepped, S, STEP_V, "high", out="host")
+    if not (isinstance(L, np.ndarray) and L.shape == S.shape):
+        fail(f"stepped cholesky: L {type(L)}")
+    for r0 in range(0, n, 8192):
+        if np.triu(L[r0:r0 + 8192], r0 + 1).any():
+            fail("stepped cholesky: L is not lower triangular")
+    t0 = time.perf_counter()
+    gate = cholesky_residual_blocked(S, L)
+    report("stepped cholesky out=host", n, ms, peak, peak / S.nbytes,
+           counts, gate, time.perf_counter() - t0, RESIDUAL_GATE,
+           n ** 3 / 3.0, "upload, factorization, in-place tril and the "
+           "host stream of L")
+    del S, L
+
+    nc = STEP_CROUT_N
+    A = random_matrix(nc, nc)
+    ms, (F, perm), counts, peak = _stepped_run(
+        lu_factor_stepped, A, STEP_V, "high", out="device", scheme="crout")
+    if not (F.is_cuda and _host_perm_ok(perm.cpu(), nc)):
+        fail("stepped crout: F left the card or perm is not a permutation")
+    t0 = time.perf_counter()
+    gate = lu_residual_blocked(A, F, perm)
+    report("stepped crout out=device", nc, ms, peak, peak / A.nbytes,
+           counts, gate, time.perf_counter() - t0, RESIDUAL_GATE,
+           2.0 / 3.0 * nc ** 3, "upload and factorization")
+    del A, F, perm
+    torch.cuda.empty_cache()
+    return out
+
+
+# the front ends, driven through their main() as a user runs them: the
+# LU miniapp on the main path (in this process, 'high') and on a (2, 2, 2)
+# grid of 8 ranks it starts (gloo, on this card), the Cholesky miniapp on
+# (2, 2, 2), a profiled LU at N = 4096, the Cholesky helper's files, and
+# the sweep of configs/params_example.ini with its csv in a temporary
+# directory
+# (app, flags, main path): the main path's run, in this process, has its
+# launches held to the crout step loop
+CLI_RUNS = (
+    ("conflux_miniapp", "-N 32768 -b 1536 -p 1x1x1 -r 2 --validate "
+                        "--precision high", True),
+    ("conflux_miniapp", "-N 16384 -b 512 -p 2x2x2 -r 1 --validate", False),
+    ("cholesky_miniapp", "-N 16384 -v 512 -g 2x2x2 -r 1 --validate", False),
+    ("conflux_miniapp", "-N 4096 -b 256 -p 1x1x1 -r 1 --profile", False),
+)
+CLI_HELPER_N = 2048
+
+
+def _captured(fn, *args):
+    """(fn(*args), its standard output), the output echoed indented."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print("  | " + line)
+    return rc, text
+
+
+def _result_lines(text: str, tag: str):
+    """The `_result_` lines of a run, each split into its 10 fields."""
+    rows = [line.split(" ", 1)[1].split(",") for line in text.splitlines()
+            if line.startswith("_result_ ")]
+    if not rows or any(len(r) != 10 for r in rows):
+        fail(f"cli {tag}: _result_ lines {rows}")
+    return rows
+
+
+def phase_cli(smi: str):
+    """CLI_RUNS through each miniapp's main(); every `_result_` line's
+    fields checked (algorithm, library, N, N_base, P, grid, unit, type,
+    value, v), every time > 0, one time line per repetition, the residual
+    <= 1e-6; the in-process main-path run's launches held to 3 crout
+    factorizations (warm-up and two repetitions). Then the Cholesky
+    helper and the sweep. Returns that run's launches."""
+    import configparser
+    import csv
+    import tempfile
+
+    import torch
+
+    from conflux_tpu_torch.bench import plots
+    from conflux_tpu_torch.cholesky.single import cholesky
+    from conflux_tpu_torch.cli import cholesky_helper, cholesky_miniapp, \
+        conflux_miniapp, sweep
+    from conflux_tpu_torch.io import load_matrix, save_matrix
+
+    mains = {"conflux_miniapp": conflux_miniapp.main,
+             "cholesky_miniapp": cholesky_miniapp.main}
+    _need_native("cli")
+    out = {}
+    for app, flags, main_path in CLI_RUNS:
+        argv = flags.split()
+        opt = dict(zip(argv[::2], argv[1::2]))
+        n = int(opt["-N"])
+        grid = opt.get("-p") or opt["-g"]
+        P = int(np.prod([int(x) for x in grid.split("x")]))
+        v = opt.get("-b") or opt["-v"]
+        reps = int(opt["-r"])
+        torch.cuda.empty_cache()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc, text = _captured(mains[app], argv)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        tag = f"{app} {flags}"
+        rows = _result_lines(text, tag)
+        lib = "conflux-tpu" if app == "conflux_miniapp" else "psychol"
+        alg = "lu" if app == "conflux_miniapp" else "cholesky"
+        for r in rows:
+            want = [alg, lib, str(n), str(n), str(P), grid]
+            if r[:6] != want or r[7] != "strong" or r[9] != v:
+                fail(f"cli {tag}: fields {r}, expected {want} ... strong "
+                     f"... {v}")
+        times = [float(r[8]) for r in rows if r[6] == "time"]
+        res = [float(r[8]) for r in rows if r[6] == "residual"]
+        if rc != 0 or len(times) != reps or not all(t > 0 for t in times):
+            fail(f"cli {tag}: rc {rc}, times {times}")
+        if ("--validate" in argv) != bool(res) or not all(
+                x <= RESIDUAL_GATE for x in res):
+            fail(f"cli {tag}: residual lines {res}")
+        if "--profile" in argv and "lu_profiled_total" not in text:
+            fail(f"cli {tag}: no profiled region table")
+        note = ""
+        if main_path:
+            # lu_25d on (1, 1, 1) runs the crout main path on the matrix
+            # padded to a multiple of v (layout.BlockCyclic.create)
+            vi = int(v)
+            npad = -(-n // vi) * vi
+            want = {k: 3 * c for k, c in _loop_want("crout", npad,
+                                                     vi).items()}
+            _expect([counts], want, f"cli {tag}")
+            out["cli conflux_miniapp 1x1x1"] = counts
+            note = (f", launches of its 3 factorizations (warm-up and 2 "
+                    f"repetitions, N padded to {npad}) K1 "
+                    f"{counts['rank1_panel']}, K2 "
+                    f"{counts['sub_matmul_bigk']} as derived from the "
+                    "crout step loop")
+        print(f"cli {tag} on {smi}: rc 0, times ms {times}, residual "
+              f"{res}, {wall:.1f} s of wall in all{note}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nh = CLI_HELPER_N
+        rc, _ = _captured(cholesky_helper.main,
+                          ["--generate", str(nh), "--dir", tmp])
+        A = torch.from_numpy(load_matrix(f"{tmp}/input_{nh}.bin", nh)).cuda()
+        save_matrix(f"{tmp}/output_{nh}.bin", cholesky(A, 256))
+        rc2, text = _captured(cholesky_helper.main,
+                              ["--compare", str(nh), "--dir", tmp])
+        if rc or rc2 or "OK" not in text:
+            fail(f"cli cholesky_helper: rc {rc} / {rc2}")
+        print(f"cli cholesky_helper --generate {nh} / --compare {nh} with "
+              f"the port's float64 cholesky on the card: OK")
+
+        cfg = configparser.ConfigParser()
+        cfg.read("configs/params_example.ini")
+        csv_path = f"{tmp}/benchmarks.csv"
+        for section in cfg.sections():
+            cfg[section]["csv"] = csv_path
+        ini = f"{tmp}/params_example.ini"
+        with open(ini, "w") as f:
+            cfg.write(f)
+        t0 = time.perf_counter()
+        rc, text = _captured(sweep.main, [ini])
+        wall = time.perf_counter() - t0
+        with open(csv_path) as f:
+            rows = list(csv.reader(f))
+        want = sum(len(s.get("sizes").split(",")) * s.getint("reps")
+                   for s in (cfg[x] for x in cfg.sections()))
+        if rc or rows[0][:6] != ["algorithm", "library", "N", "N_base", "P",
+                                 "grid"] or len(rows) != 1 + want:
+            fail(f"cli sweep: rc {rc}, {len(rows) - 1} rows, expected "
+                 f"{want}")
+        if not all(float(r[8]) > 0 for r in rows[1:]):
+            fail("cli sweep: a time <= 0")
+        summary = plots.summarize(plots.load(csv_path))
+        print(f"cli sweep configs/params_example.ini on {smi}: {want} rows "
+              f"in {wall:.1f} s, plots.summarize: {len(summary)} series")
+    return out
+
+
 def _pick(table, **want):
     return next(r for r in table if all(r[k] == v for k, v in want.items()))
 
 
 ROUTE_LAUNCHES = {}     # K1's per route and path, set once the card is known
+
+
+def _walled(label: str, phase, *args):
+    """phase(*args), its wall printed."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s of wall")
+    return out
+
+
+T0 = time.perf_counter()
 
 
 def main() -> int:
@@ -1968,13 +2337,17 @@ def main() -> int:
     k4_counts = _counts()
     k56_rows = phase_rows()
     phase_small()
-    by_path = {"crout": phase_lu_path(smi, "crout"),
-               "flat": phase_lu_path(smi, "flat"),
-               "cholesky": phase_cholesky_path(smi),
-               "swap": phase_lu_path(smi, "swap"),
-               "split": phase_lu_path(smi, "split")}
-    by_path.update(phase_dtypes(smi))
-    by_path.update(phase_dist(smi))
+    print(f"phase build and kernels: {time.perf_counter() - T0:.1f} s of "
+          "wall")
+    by_path = {"crout": _walled("crout", phase_lu_path, smi, "crout"),
+               "flat": _walled("flat", phase_lu_path, smi, "flat"),
+               "cholesky": _walled("cholesky", phase_cholesky_path, smi),
+               "swap": _walled("swap", phase_lu_path, smi, "swap"),
+               "split": _walled("split", phase_lu_path, smi, "split")}
+    by_path.update(_walled("dtypes", phase_dtypes, smi))
+    by_path.update(_walled("stepped", phase_stepped, smi))
+    by_path.update(_walled("dist", phase_dist, smi))
+    by_path.update(_walled("cli", phase_cli, smi))
     launches = {name: sum(c[name] for c in by_path.values())
                 for name in KERNELS}
     for name, n in launches.items():

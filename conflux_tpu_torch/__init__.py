@@ -28,6 +28,16 @@ ScaLAPACK-style entry points `pdgetrf` / `pdpotrf`; `pgemm` the SUMMA product
 the substep-profiled rank programs (`lu.profiled`, `cholesky.profiled`);
 `spec` the serial numpy simulation and the comm models.
 
+`lu.stepped.lu_factor_stepped` and `cholesky.stepped.cholesky_stepped`
+factor in one copy of A on the card (the caller's tensor, consumed, or
+one uploaded buffer), for matrices the in-memory paths cannot hold
+twice; the factor stays there or streams to the host. The front ends are
+`cli` (the LU and Cholesky miniapps with the `_result_` protocol, the
+Cholesky helper and the ini-driven sweep), `bench` (the benchmarks.csv
+harness and plots), `io` (the seeded generators and the raw f64 files)
+and `native` (the C++/OpenMP host runtime, built with g++ at first
+use).
+
 Every factorization entry point takes the JAX package's dtypes: float32,
 float64 (f64 throughout; K1 in double, `csrc/rank1_panel_f64.cu`) and
 bfloat16 storage (a bf16 buffer and factor, with f32 panels, pivoting,
@@ -51,6 +61,8 @@ def __getattr__(name):
     lazy = {
         "lu_factor": "conflux_tpu_torch.lu.single",
         "lu_residual": "conflux_tpu_torch.lu.single",
+        "lu_factor_stepped": "conflux_tpu_torch.lu.stepped",
+        "cholesky_stepped": "conflux_tpu_torch.cholesky.stepped",
         "clu_factor": "conflux_tpu_torch.lu.csingle",
         "clu_residual": "conflux_tpu_torch.lu.csingle",
         "clu_25d": "conflux_tpu_torch.lu.cp25d",
@@ -77,6 +89,7 @@ def __getattr__(name):
 
 
 __all__ = ["ConfluxError", "ErrorCode", "lu_factor", "lu_residual",
+           "lu_factor_stepped", "cholesky_stepped",
            "clu_factor", "clu_residual", "clu_25d",
            "lu_residual_blocked", "cholesky_residual_blocked",
            "lu_solve", "cho_solve", "make_grid", "lu_25d", "plu",

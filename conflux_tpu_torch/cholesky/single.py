@@ -33,12 +33,19 @@ def _potrf_flat(A: torch.Tensor, v: int,
     (A itself is never written). Exactly N^3/3 product FLOPs. bf16
     storage: F is bf16, each column is upcast to f32 and updated by one
     'bf16' product of the bf16 factor columns."""
-    n = A.shape[0]
-    bf16s = A.dtype == torch.bfloat16
-    F = A.clone()
+    return potrf_inplace(A.clone(), v, precision).tril_()
+
+
+def potrf_inplace(F: torch.Tensor, v: int,
+                  precision: str = "highest") -> torch.Tensor:
+    """The steps of `_potrf_flat` on F itself: its lower triangle becomes
+    the factor, the strict upper triangle keeps stale values (the
+    caller's tril clears them). Returns F."""
+    n = F.shape[0]
+    bf16s = F.dtype == torch.bfloat16
     for k in range(0, n, v):
         w = min(v, n - k)
-        col = F[k:, k:k + w].to(compute_dtype(A.dtype))
+        col = F[k:, k:k + w].to(compute_dtype(F.dtype))
         if k > 0:
             L21, L1t = F[k:, :k], F[k:k + w, :k].T
             # K2 in 'high' only: in 'bf16' on f32 operands it ties with
@@ -46,7 +53,7 @@ def _potrf_flat(A: torch.Tensor, v: int,
             # (experiments/torch_kernel_ab.py --steps)
             if bf16s:
                 col = col - schur_dot(L21, L1t, "bf16")
-            elif precision == "high" and A.dtype == torch.float32:
+            elif precision == "high" and F.dtype == torch.float32:
                 col = sub_matmul_bigk(col, L21, L1t, precision)
             else:
                 col = col - schur_dot(L21, L1t, precision)
@@ -55,7 +62,7 @@ def _potrf_flat(A: torch.Tensor, v: int,
         if k + w < n:
             F[k + w:, k:k + w] = trsm_right_lower_t(col[w:], L11,
                                                     method="invert")
-    return F.tril_()
+    return F
 
 
 def _potrf_rec(A: torch.Tensor, v: int,

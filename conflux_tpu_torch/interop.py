@@ -34,3 +34,13 @@ def factors_to_numpy(F: torch.Tensor, perm: torch.Tensor):
         F = F.float()
     return (F.cpu().numpy(),
             perm.detach().cpu().numpy().astype(np.int64, copy=False))
+
+
+def resolve_device(device) -> torch.device:
+    """`device` with its index filled in ('cuda' -> the current card), so
+    that two names of one device compare equal. 'cuda' without a card
+    raises torch's own error."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -75,6 +75,23 @@ def _partition_now(dead: int, v: int, k: int, w: int, n: int,
     return bool(partition) and dead >= partition * v or k + w >= n
 
 
+def trailing_update(R: torch.Tensor, Mgemm: torch.Tensor, U12: torch.Tensor,
+                    c0: int, precision: str):
+    """The flat step's one trailing update R[:, c0:] -= Mgemm @ U12 in
+    place, in `precision`: bf16 storage's one bf16 pass rounded once into R
+    ('bf16out', K3 on the card); IEEE fp32 `torch.mm` for 'highest', or
+    the f64 product of schur_dot on a float64 R; K3 otherwise, where a
+    float32 R's 'bf16out' (one pass rounded into R's own type) is the
+    kernel's 'bf16' pass, as on the TPU."""
+    if R.dtype == _BF16:
+        schur_update(R, Mgemm, U12, c0, "bf16out")
+    elif precision == "highest" or R.dtype == torch.float64:
+        R[:, c0:].sub_(schur_dot(Mgemm, U12, precision))
+    else:
+        schur_update(R, Mgemm, U12, c0,
+                     "bf16" if precision == "bf16out" else precision)
+
+
 def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
                 partition: int = 1):
     """Blocked right-looking LU with banded row movement. Per step k
@@ -136,17 +153,7 @@ def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
                 # JAX package forms this by a one-hot product at HIGHEST
                 # precision; the index add is that product, exactly.
                 Mgemm[piv] += torch.tril(lu_top, -1)
-            if R.dtype == _BF16:
-                # bf16 storage: one bf16 pass rounded once into R
-                schur_update(R, Mgemm, U12, k + w, "bf16out")
-            elif precision == "highest" or R.dtype == torch.float64:
-                # IEEE fp32, or the f64 product of schur_dot
-                R[:, k + w:].sub_(schur_dot(Mgemm, U12, precision))
-            else:
-                # R is float32 here, so 'bf16out' (one pass rounded into
-                # R's own type) is the kernel's 'bf16' pass, as on the TPU
-                schur_update(R, Mgemm, U12, k + w,
-                             "bf16" if precision == "bf16out" else precision)
+            trailing_update(R, Mgemm, U12, k + w, precision)
         if part_now:
             done = torch.cat(pend) if len(pend) > 1 else pend[0]
             d = done.shape[0]
@@ -172,8 +179,22 @@ def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
     return F, perm
 
 
+def compact_prefix(R: torch.Tensor, idx: torch.Tensor,
+                   rows: int) -> torch.Tensor:
+    """R[:len(idx)] = R[idx] in place, `rows` rows at a time, and return
+    that prefix. idx must be ascending (so idx[i] >= i): each block then
+    reads only rows that no earlier block has written, and the card holds
+    one block beside R instead of a second R."""
+    live = idx.shape[0]
+    for r0 in range(0, live, rows):
+        r1 = min(r0 + rows, live)
+        R[r0:r1] = R.index_select(0, idx[r0:r1])
+    return R[:live]
+
+
 def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
-                 partition: int = 1):
+                 partition: int = 1, consume: bool = False,
+                 chunk: int = 8192):
     """Blocked crout LU with partial pivoting and 'gather' compaction.
     Per step k (width w):
 
@@ -191,8 +212,11 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
     bf16 storage: R and F are bf16; the panel and the winners' raw row are
     upcast to f32, the big-K products run 'bf16' on the bf16 operands, and
     the elimination keeps merged=True, so lu_top stays f32 for the TRSM
-    instead of passing through bf16 R. A is not modified. Peak memory is
-    A, F and the shrinking R."""
+    instead of passing through bf16 R. A is not modified, and peak memory
+    is A, F and the shrinking R. With `consume`, A is the working region
+    itself: A is overwritten, and each compaction moves the live rows into
+    its prefix in place, `chunk` rows at a time (`compact_prefix`), so
+    peak memory is A and F. `chunk` applies only with `consume`."""
     m, n = A.shape
     dev = A.device
     bf16s = A.dtype == _BF16
@@ -236,16 +260,18 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
             # sorted live rows without a host sync: dead rows sort last
             rows = torch.arange(m_r, device=dev)
             live_idx = torch.sort(torch.where(avail, rows, m_r)).values[:live]
-            # gather first, then write the panel columns into the fresh
-            # buffer: the same rows as writing R first, and R (which may
-            # still be the caller's A) is never written
-            R = R[live_idx]
+            # gather first, then write the panel columns into the
+            # compacted rows: the same rows as writing R first, and R
+            # (which may still be the caller's A) is never written unless
+            # the caller gave it up (consume)
+            R = (compact_prefix(R, live_idx, chunk) if consume
+                 else R[live_idx])
             R[:, k:k + w] = cols[live_idx]
             origin = origin[live_idx]
             avail = torch.ones(live, dtype=torch.bool, device=dev)
             dead = 0
         elif live > 0:
-            if R is A:
+            if R is A and not consume:
                 R = A.clone()      # the first write must not reach A
             R[:, k:k + w] = cols
     if m > n:

@@ -29,24 +29,7 @@ from conflux_tpu_torch.grid import (
 )
 from conflux_tpu_torch.layout import BlockCyclic, distribute, undistribute
 from conflux_tpu_torch.lu.p25d import lu_25d
-
-
-def _perm_to_ipiv(perm: np.ndarray) -> np.ndarray:
-    """Permutation vector (slot -> original row) -> LAPACK getrf's
-    sequential-swap IPIV (1-based): the walk of
-    `conflux_tpu/native.perm_to_ipiv`'s Python fallback."""
-    perm = np.ascontiguousarray(perm, np.int64)
-    n = perm.shape[0]
-    ipiv = np.empty(n, np.int64)
-    work = np.arange(n)
-    pos = np.arange(n)
-    for i in range(n):
-        j = pos[perm[i]]
-        ipiv[i] = j + 1
-        wi, wj = work[i], work[j]
-        work[i], work[j] = wj, wi
-        pos[wi], pos[wj] = j, i
-    return ipiv
+from conflux_tpu_torch.native import perm_to_ipiv
 
 
 @dataclass(frozen=True)
@@ -69,7 +52,7 @@ class Factorization:
         if self.perm is None:
             raise ConfluxError(ErrorCode.NOT_FACTORIZED,
                                "no pivots: not an LU factorization")
-        return _perm_to_ipiv(self.perm.cpu().numpy())
+        return perm_to_ipiv(self.perm.cpu().numpy())
 
 
 def _world_size() -> int:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from conflux_tpu_torch.interop import resolve_device
 from conflux_tpu_torch.ops.tri import _mm_f32acc
 from conflux_tpu_torch.precision import ieee_fp32
 
@@ -66,26 +67,46 @@ def lu_residual_dense(A, F, perm) -> float:
     return float(np.linalg.norm(R) / (n * np.linalg.norm(A)))
 
 
+def _as_tensor(X) -> torch.Tensor:
+    """X as a tensor where it lies: a numpy array is wrapped, not copied."""
+    return X if isinstance(X, torch.Tensor) else torch.from_numpy(
+        np.asarray(X))
+
+
+def _gate_device(F, device) -> torch.device:
+    """Where a blocked gate computes: `device` if given, else the factor's
+    device when it is a tensor, else (a numpy factor) the card."""
+    if device is None:
+        device = F.device if isinstance(F, torch.Tensor) else "cuda"
+    return resolve_device(device)
+
+
 @ieee_fp32()
-def lu_residual_blocked(A: torch.Tensor, F: torch.Tensor, perm: torch.Tensor,
-                        block: int = 4096) -> float:
-    """FULL ||PA - LU||_F / (N ||A||_F) on the factors' device, for factors
-    too large for a dense float64 reconstruction: U = triu(F[:n]) is formed
-    once, and A and L stream through in `block`-row slices, so the device
-    holds A, F, U and two row blocks. The reconstruction is IEEE fp32
-    (`precision.ieee_fp32`, whatever the caller set) for a float32
-    factor, bf16 products with f32 accumulation for a bf16 factor (the
-    JAX package's bf16 branch: U stays bf16), f64 for a float64 factor
-    and complex128 for a complex one; the block sums accumulate in float64
-    on the device, and the one host read is the final scalar."""
-    F = torch.as_tensor(F)
-    dev = F.device
+def lu_residual_blocked(A, F, perm, block: int = 4096,
+                        device=None) -> float:
+    """FULL ||PA - LU||_F / (N ||A||_F) for factors too large for a dense
+    float64 reconstruction. A and F may each lie on the host (numpy or a
+    CPU tensor) or on a card; the reconstruction runs on `device` (None:
+    the factor's device for a tensor factor, the card for a numpy one).
+    U = triu(F[:n]) is formed there once, in `block`-row slices, and the
+    rows of L and of A[perm] stream through in `block`-row slices, so the
+    device holds U and two row blocks besides whatever of A and F already
+    lies there. The reconstruction is IEEE fp32 (`precision.ieee_fp32`,
+    whatever the caller set) for a float32 factor, bf16 products with
+    f32 accumulation for a bf16 factor (the JAX package's bf16 branch: U
+    stays bf16), f64 for a float64 factor and complex128 for a complex
+    one; the block sums accumulate in float64 on the device, and the one
+    host read is the final scalar."""
+    dev = _gate_device(F, device)
+    A, F = _as_tensor(A), _as_tensor(F)
     cdt = _recon_dtype(F)
     fdt = F.dtype if F.dtype == torch.bfloat16 else cdt
-    A = torch.as_tensor(A, device=dev)
-    perm = torch.as_tensor(perm, device=dev).long()
+    perm = torch.as_tensor(perm).long().to(A.device)
     m, n = F.shape
-    U = torch.triu(F[:n]).to(fdt)
+    U = torch.empty((n, n), dtype=fdt, device=dev)
+    for r0 in range(0, n, block):
+        r1 = min(r0 + block, n)
+        U[r0:r1] = torch.triu(F[r0:r1, :n].to(dev, fdt), r0)
     c = torch.arange(n, device=dev)[None, :]
     r2 = torch.zeros((), dtype=torch.float64, device=dev)
     a2 = torch.zeros((), dtype=torch.float64, device=dev)
@@ -94,9 +115,9 @@ def lu_residual_blocked(A: torch.Tensor, F: torch.Tensor, perm: torch.Tensor,
         r = torch.arange(r0, r1, device=dev)[:, None]
         # unit-lower mask of factor rows r0..r1: strict-lower entries kept,
         # unit diagonal, zeros above
-        Lb = torch.where(c < r, F[r0:r1].to(fdt), 0.0)
+        Lb = torch.where(c < r, F[r0:r1].to(dev, fdt), 0.0)
         Lb += ((c == r) & (r < n)).to(fdt)
-        Arows = A[perm[r0:r1]].to(cdt)
+        Arows = A.index_select(0, perm[r0:r1]).to(dev, cdt)
         Rb = Arows - _product(Lb, U)
         r2 += sum_sq(Rb)
         a2 += sum_sq(Arows)
@@ -112,28 +133,34 @@ def cholesky_residual_dense(A, L) -> float:
 
 
 @ieee_fp32()
-def cholesky_residual_blocked(A: torch.Tensor, L: torch.Tensor,
-                              block: int = 4096) -> float:
-    """FULL ||A - L L^T||_F / (N ||A||_F) on the factor's device, for
-    factors too large for a dense float64 reconstruction: L (lower
-    triangular, as `cholesky` returns it) stays where it is and A streams
-    through in `block`-row slices, so the device holds A, L and two row
-    blocks. IEEE fp32 reconstruction (`precision.ieee_fp32`) for a
-    float32 factor, bf16 products with f32 accumulation for a bf16 one,
-    f64 for a float64 one; float64 block sums on the device, one host read
-    of the final scalar."""
-    L = torch.as_tensor(L)
-    dev = L.device
+def cholesky_residual_blocked(A, L, block: int = 4096,
+                              device=None) -> float:
+    """FULL ||A - L L^T||_F / (N ||A||_F) for factors too large for a
+    dense float64 reconstruction. A and L (lower triangular, as
+    `cholesky` returns it) may each lie on the host or on a card; the
+    reconstruction runs on `device` (None: the factor's device for a
+    tensor factor, the card for a numpy one). L is copied there in
+    `block`-row slices unless it lies there already in its gate dtype,
+    and A's rows stream through in `block`-row slices, so the device
+    holds L and two row blocks. IEEE fp32 reconstruction
+    (`precision.ieee_fp32`) for a float32 factor, bf16 products with f32
+    accumulation for a bf16 one, f64 for a float64 one; float64 block
+    sums on the device, one host read of the final scalar."""
+    dev = _gate_device(L, device)
+    A, L = _as_tensor(A), _as_tensor(L)
     cdt = _recon_dtype(L)
-    if L.dtype != torch.bfloat16:
-        L = L.to(cdt)
-    A = torch.as_tensor(A, device=dev)
+    ldt = L.dtype if L.dtype == torch.bfloat16 else cdt
     n = L.shape[0]
+    if L.device != dev or L.dtype != ldt:
+        Ld = torch.empty((n, n), dtype=ldt, device=dev)
+        for r0 in range(0, n, block):
+            Ld[r0:r0 + block].copy_(L[r0:r0 + block])
+        L = Ld
     r2 = torch.zeros((), dtype=torch.float64, device=dev)
     a2 = torch.zeros((), dtype=torch.float64, device=dev)
     for r0 in range(0, n, block):
         r1 = min(r0 + block, n)
-        Arows = A[r0:r1].to(cdt)
+        Arows = A[r0:r1].to(dev, cdt)
         Rb = Arows - _product(L[r0:r1], L.T)
         r2 += sum_sq(Rb)
         a2 += sum_sq(Arows)

@@ -820,3 +820,70 @@ def test_k2_bf16_entry_checks_its_inputs(card):
         cuda_gemm.sub_matmul_bigk_bf16(R, A.float(), B, "bf16")
     with pytest.raises(TypeError):
         cuda_gemm.sub_matmul_bigk_bf16(R, A, B, "bf16out")   # R float32
+
+
+STEPPED_N, STEPPED_V = 4096, 512
+
+
+def _stepped_input(card, seed=5):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return 5.0 + torch.rand(STEPPED_N, STEPPED_N, generator=g, device=card)
+
+
+def test_stepped_flat_matches_flat_lu_on_card(card):
+    """The stepped flat LU against lu_factor(scheme='flat') at 'highest':
+    the same panel math on the same values, the same U12 spliced into the
+    pivot rows, so the same pivots; the library's products sum in another
+    order at the two drivers' different heights, and that roundoff
+    compounds through the steps (F within 2e-4 of max|F| of the flat F
+    at N = 4096, measured on an H100; held at 1e-3), and both meet the
+    gate. A consumed CUDA input holds the factor in original row order."""
+    from conflux_tpu_torch.lu.stepped import lu_factor_stepped
+
+    A = _stepped_input(card)
+    F0, p0 = lu_factor(A, v=STEPPED_V, scheme="flat")
+    R = A.clone()
+    before = _counts()
+    F1, p1 = lu_factor_stepped(R, v=STEPPED_V, out="device")
+    steps = STEPPED_N // STEPPED_V
+    assert _counts()["k3"] - before["k3"] == 0       # 'highest': torch.mm
+    assert torch.equal(p0, p1)
+    assert (F0 - F1).abs().max() <= 1e-3 * F0.abs().max()
+    assert torch.equal(R[p1], F1)
+    assert lu_residual_blocked(A, F1, p1) <= 1e-6
+    F2, p2 = lu_factor_stepped(A.clone(), v=STEPPED_V, precision="high",
+                               out="host")
+    assert isinstance(F2, np.ndarray)
+    assert lu_residual_blocked(A, F2, p2) <= 1e-6
+    assert _counts()["k3"] - before["k3"] == steps - 1
+
+
+def test_stepped_cholesky_is_the_flat_cholesky_in_place_on_card(card):
+    from conflux_tpu_torch.cholesky.stepped import cholesky_stepped
+
+    g = torch.Generator(device=card).manual_seed(6)
+    X = torch.rand(STEPPED_N, STEPPED_N, generator=g, device=card)
+    S = (X + X.T) / 2
+    S.diagonal().add_(float(STEPPED_N))
+    L0 = cholesky(S, v=STEPPED_V)
+    R = S.clone()
+    L1 = cholesky_stepped(R, v=STEPPED_V, out="device")
+    assert L1.data_ptr() == R.data_ptr()
+    assert torch.equal(L0, L1)
+    Lh = cholesky_stepped(S.clone(), v=STEPPED_V, out="host")
+    np.testing.assert_array_equal(Lh, L0.cpu().numpy())
+    assert cholesky_residual_blocked(S, Lh) <= 1e-6
+
+
+def test_stepped_crout_is_the_crout_lu_on_card(card):
+    from conflux_tpu_torch.lu.stepped import lu_factor_stepped
+
+    A = _stepped_input(card, seed=7)
+    F0, p0 = lu_factor(A, v=STEPPED_V, precision="high")
+    F1, p1 = lu_factor_stepped(A.clone(), v=STEPPED_V, precision="high",
+                               scheme="crout", out="device")
+    assert torch.equal(p0, p1) and torch.equal(F0, F1)
+
+
+def _counts():
+    return {"k3": cuda_gemm.SCHUR_UPDATE_LAUNCHES}
