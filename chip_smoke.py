@@ -22,8 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      in all three modes (forced ones on the tile route); every call
      checked against the route counter it must move; then K1 in double
      against the same plain version in f64 and cuSOLVER's f64 LU at the
-     f64 crout path's [128, 32768] finish block, a [128, 2048] block and
-     a forced [128, 1536] tile, each on its own counter;
+     f64 crout path's [128, 32768] finish block and a [128, 17408] block
+     (the grid route in double, its slab on chip), a [128, 2048] block
+     (its cluster route) and the forced [128, 1536] pivot-row and
+     [64, 1536] Cholesky tiles (its tile route), each call checked
+     against the double route counter it must move;
   4. K3 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
      SYNCS instructions; then K3 against its plain PyTorch version on the
      same CUDA inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's
@@ -69,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      to bf16 or made in f64), and complex64 clu_factor at N=16384 (cut
      from 32768: its panel is the JAX package's per-column loop, eager,
      with no kernel in either package): each one warm-up and REPS timed
-     runs, its launches per kernel and route held to DTYPE_PATHS, its peak
+     runs, its launches per kernel and route held to DTYPE_PATHS (K1 in
+     double's per route from the step loop through `route_f64`), its peak
      memory, and the JAX package's gate for that dtype;
  14. dist: the 2.5D rank programs, 8 ranks of one gloo world on this one
      card (kernels built in this process first, so the ranks only load
@@ -130,7 +134,8 @@ before the last but one is a JSON object with each kernel's numbers: its
 timed factorizations), and `launches_by_path` gives each path's count;
 K4, which no path runs (no path of the JAX package calls matmul_pallas),
 counts the launches of its own phase. `launches_by_route` splits K1's
-into the cluster, grid and tile routes, K3's and K2's into their one route
+and K1 in double's into the cluster, grid and tile routes, K3's and K2's
+into their one route
 (split pass + wgmma), K4's by route and K5's and K6's into TMA bulk copies
 and word copies; K1's per route are checked per path against counts
 derived from the step loops. `bound_ms` is the least time the card could take for the kernel's
@@ -250,13 +255,14 @@ DTYPE_GATES = {"bf16 crout": 0.05 / N, "bf16 flat": 0.05 / N,
 K1_ROUTES = ("cluster", "grid", "tile")
 
 
-def k1_route_launches(route) -> dict:
-    """K1's launches per factorization of each path on each route, where
-    route(w, m, forced) names the route a block takes on this card."""
+def k1_route_launches(route, kernel: str = "rank1_panel") -> dict:
+    """K1's (or, with kernel='rank1_panel_f64', K1 in double's) launches
+    per factorization of each path on each route, where route(w, m,
+    forced) names the route a block takes on this card."""
     out = {}
     for path in PATH_LAUNCHES:
         taken = [route(*b) for b in k1_blocks(path)]
-        out[path] = {f"rank1_panel {r}": taken.count(r) for r in K1_ROUTES}
+        out[path] = {f"{kernel} {r}": taken.count(r) for r in K1_ROUTES}
     return out
 
 
@@ -305,12 +311,14 @@ K2_SHAPES = (("panel k=1536", 31232, 1536, 1536, False),
 # the calls whose split pass is timed beside the whole call ('high'): the
 # largest A and the largest B of the crout path
 K2_SPLIT_TIMED = ("panel k=15360", "refresh k=15360")
-# K1 in double (w, m, mode, j0): the f64 crout path's first block (finish,
-# the grid route's global-memory slab), a block of the last panels and a
-# forced pivot-row tile, held to its plain version within a few f64
-# roundings of max|ref|
-K1_F64_SHAPES = ((128, 32768, "finish", 0), (128, 2048, "unforced", 0),
-                 (128, 1536, "forced", 128))
+# K1 in double (w, m, mode, j0): the f64 crout path's first block (finish)
+# and a mid panel's (the grid route, its slab on chip: the first's last
+# rows in registers), a block of the last panels (the cluster route), a
+# forced pivot-row tile and the f64 Cholesky's forced tile (the tile
+# route), held to its plain version within a few f64 roundings of max|ref|
+K1_F64_SHAPES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
+                 (128, 2048, "unforced", 0), (128, 1536, "forced", 128),
+                 (64, 1536, "forced", 64))
 K1_F64_TOL = 1e-12
 # K2's bf16-operand entry (tag, m, k, n, B transposed): the bf16 crout
 # path's first and last panel updates, and the bf16 Cholesky path's (B the
@@ -548,7 +556,8 @@ def phase_k1():
 
 def phase_k1_f64():
     """K1 in double against its plain version (the same `_rank1_block_t`,
-    in f64) and against cuSOLVER's f64 LU of the same block."""
+    in f64) and against cuSOLVER's f64 LU of the same block, each call
+    checked against the double route counter it must move."""
     import torch
 
     from conflux_tpu_torch.ops import cuda_panel
@@ -574,13 +583,17 @@ def phase_k1_f64():
             return cuda_panel.rank1_block_t_f64(Mt, av, forced, j0, finish)
 
         ref = plain()
-        before = (cuda_panel.LAUNCHES, cuda_panel.LAUNCHES_F64)
+        counters = ("LAUNCHES", "LAUNCHES_F64", "LAUNCHES_F64_CLUSTER",
+                    "LAUNCHES_F64_GRID", "LAUNCHES_F64_TILE")
+        before = [getattr(cuda_panel, c) for c in counters]
         got = kernel()
         torch.cuda.synchronize()
-        moved = (cuda_panel.LAUNCHES - before[0],
-                 cuda_panel.LAUNCHES_F64 - before[1])
-        if moved != (0, 1):
-            fail(f"K1 f64 [{w}, {m}] {mode}: counters moved {moved}")
+        route = cuda_panel.route_f64(w, m, forced)
+        moved = tuple(getattr(cuda_panel, c) - b
+                      for c, b in zip(counters, before))
+        if moved != (0, 1) + tuple(int(route == r) for r in K1_ROUTES):
+            fail(f"K1 f64 [{w}, {m}] {mode}: counters moved {moved}, "
+                 f"expected the {route} route in double")
         piv_ok = torch.equal(ref[2], got[2].long())
         ok_ok = torch.equal(ref[3], got[3] > 0)
         av_ok = torch.equal(ref[1], got[1])
@@ -594,7 +607,7 @@ def phase_k1_f64():
         t_l = None if forced else per_call_ms(_cusolver_lu, Mt.T)
         bound = _bound(1.0 * w * (w - 1) * m + w * m,
                        8.0 * (2 * w * m + 2 * m) + 8.0 * w, FP64_FLOP_S)
-        tag = f"K1 f64 [{w}, {m}] {mode} j0={j0} (grid route in double)"
+        tag = f"K1 f64 [{w}, {m}] {mode} j0={j0} ({route} route in double)"
         lib = "none" if t_l is None else f"{t_l:.4f} ms"
         print(f"{tag}: pivots equal {piv_ok}, ok equal {ok_ok}, avail equal "
               f"{av_ok}, max|diff| {diff:.3e} (rel {diff / scale:.3e}), "
@@ -605,9 +618,10 @@ def phase_k1_f64():
             fail(f"{tag}: pivots/ok/avail disagree")
         if not diff <= K1_F64_TOL * scale:
             fail(f"{tag}: max|diff| {diff} > {K1_F64_TOL} * {scale}")
-        rows.append({"shape": (w, m), "mode": mode, "max_abs_err": diff,
-                     "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                     "bound_ms": bound[0], "bound_by": bound[1]})
+        rows.append({"shape": (w, m), "mode": mode, "route": route,
+                     "max_abs_err": diff, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": t_l, "bound_ms": bound[0],
+                     "bound_by": bound[1]})
         del Mt, av, ref, got
     return rows
 
@@ -1276,6 +1290,9 @@ def _counters():
             "rank1_panel cluster": (cuda_panel, "LAUNCHES_CLUSTER"),
             "rank1_panel grid": (cuda_panel, "LAUNCHES_GRID"),
             "rank1_panel tile": (cuda_panel, "LAUNCHES_TILE"),
+            "rank1_panel_f64 cluster": (cuda_panel, "LAUNCHES_F64_CLUSTER"),
+            "rank1_panel_f64 grid": (cuda_panel, "LAUNCHES_F64_GRID"),
+            "rank1_panel_f64 tile": (cuda_panel, "LAUNCHES_F64_TILE"),
             "schur_update wgmma": (cuda_gemm, "SCHUR_UPDATE_WGMMA_LAUNCHES"),
             "sub_matmul_bigk wgmma": (cuda_gemm,
                                       "SUB_MATMUL_BIGK_WGMMA_LAUNCHES"),
@@ -1319,15 +1336,19 @@ def _path_want(path: str) -> dict:
     each kernel's, K1's per route (ROUTE_LAUNCHES, derived from the step
     loop once the card's cluster route is known; a dtype path's K1 blocks
     are its base path's, on the float32 kernel or, for float64, all on K1
-    in double) and K3's and K2's on their wgmma route."""
+    in double, whose routes ROUTE_LAUNCHES_F64 holds) and K3's and K2's
+    on their wgmma route."""
     if path in DTYPE_PATHS:
         base, table = DTYPE_PATHS[path]
     else:
         base, table = path, PATH_LAUNCHES[path]
     want = {k: table.get(k, 0) for k in KERNELS}
-    want.update({f"rank1_panel {r}": 0 for r in K1_ROUTES})
+    want.update({f"{k} {r}": 0 for r in K1_ROUTES
+                 for k in ("rank1_panel", "rank1_panel_f64")})
     if want["rank1_panel"]:
         want.update(ROUTE_LAUNCHES[base])
+    if want["rank1_panel_f64"]:
+        want.update(ROUTE_LAUNCHES_F64[base])
     want["schur_update wgmma"] = want["schur_update"]
     want["sub_matmul_bigk wgmma"] = want["sub_matmul_bigk"]
     return want
@@ -1558,14 +1579,17 @@ def _dist_want(program: str, route, n: int, v: int, shape,
     this card), K3's one per right-looking LU step in 'high' (or under
     bf16 storage, 'bf16out') where l = v / Pz is a multiple of 128
     (`_trailing_sub`'s condition), every other kernel's none. float64
-    runs every K1 block on K1 in double and no K3; the complex LU
-    ('clu') launches no kernel."""
+    runs every K1 block on K1 in double (route: its route_f64) and no K3;
+    the complex LU ('clu') launches no kernel."""
     want = {name: 0 for name in _counters()}
     if program == "clu":
         return want
     blocks = dist_k1_blocks(program, n, v, shape)
     if dtype == "float64":
         want["rank1_panel_f64"] = len(blocks)
+        taken = [route(*b) for b in blocks]
+        for r in K1_ROUTES:
+            want[f"rank1_panel_f64 {r}"] = taken.count(r)
         return want
     want["rank1_panel"] = len(blocks)
     taken = [route(*b) for b in blocks]
@@ -1868,8 +1892,9 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
                    else variant)
         if program not in ("windowed", "fori", "crout", "cholesky", "clu"):
             fail(f"dist {name}: no launch count for variant {variant!r}")
-        want = _dist_want(program, cuda_panel.route, m, vv, shape,
-                          precision, dtype)
+        route = (cuda_panel.route_f64 if dtype == "float64"
+                 else cuda_panel.route)
+        want = _dist_want(program, route, m, vv, shape, precision, dtype)
         bound = DIST_GATES[(dtype, algorithm)]
         for r in ranks:
             bad = {k: (r[name]["counts"][k], w) for k, w in want.items()
@@ -1914,7 +1939,9 @@ def phase_dist(smi: str, n: int = DIST_N, v: int = DIST_V,
               f"{root['residual']:.3e}, launches per rank {{K1: "
               f"{want['rank1_panel']} (" + ", ".join(
                   f"{r} {want['rank1_panel ' + r]}" for r in K1_ROUTES)
-              + f"), K1 f64: {want['rank1_panel_f64']}, K3: "
+              + f"), K1 f64: {want['rank1_panel_f64']} (" + ", ".join(
+                  f"{r} {want['rank1_panel_f64 ' + r]}" for r in K1_ROUTES)
+              + f"), K3: "
               f"{want['schur_update']}}} as derived from the step loop on "
               "every rank")
     prof, fori = (ranks[0][k] for k in ("lu_25d_profiled", "lu_25d fori"))
@@ -2300,7 +2327,9 @@ def _pick(table, **want):
     return next(r for r in table if all(r[k] == v for k, v in want.items()))
 
 
-ROUTE_LAUNCHES = {}     # K1's per route and path, set once the card is known
+# K1's and K1 in double's per route and path, set once the card is known
+ROUTE_LAUNCHES = {}
+ROUTE_LAUNCHES_F64 = {}
 
 
 def _walled(label: str, phase, *args):
@@ -2322,10 +2351,17 @@ def main() -> int:
 
     phase_build()
     ROUTE_LAUNCHES.update(k1_route_launches(cuda_panel.route))
+    ROUTE_LAUNCHES_F64.update(k1_route_launches(cuda_panel.route_f64,
+                                                "rank1_panel_f64"))
     print(f"K1 cluster route up to m = {cuda_panel.cluster_max_m(128)} at "
           f"w = 128 and {cuda_panel.cluster_max_m(64)} at w = 64, forced "
           f"blocks on the tile route; launches per factorization by route: "
           f"{ROUTE_LAUNCHES}")
+    print(f"K1 in double: cluster route up to m = "
+          f"{cuda_panel.cluster_max_m_f64(128)} at w = 128 and "
+          f"{cuda_panel.cluster_max_m_f64(64)} at w = 64, forced blocks on "
+          f"the tile route; launches per factorization by route: "
+          f"{ {p: ROUTE_LAUNCHES_F64[p] for p in ('crout', 'cholesky')} }")
     k1_rows = phase_k1()
     k1f64_rows = phase_k1_f64()
     medium_bf16 = phase_medium_probe()
@@ -2402,24 +2438,29 @@ def main() -> int:
             entry["launches_by_route"] = {
                 "wgmma": wgmma, "mma.sync": mma,
                 "f32": k4_counts["matmul"] - wgmma - mma}
-        if name == "rank1_panel":
+        if name in ("rank1_panel", "rank1_panel_f64"):
             entry["launches_by_route"] = {
-                r: sum(c[f"rank1_panel {r}"] for c in by_path.values())
+                r: sum(c[f"{name} {r}"] for c in by_path.values())
                 for r in K1_ROUTES}
         if name in ("schur_update", "sub_matmul_bigk"):
             entry["launches_by_route"] = {
                 "wgmma": sum(c[name + " wgmma"] for c in by_path.values())}
-        if name == "rank1_panel_f64":
-            entry["launches_by_route"] = {"grid": launches[name]}
         if name == "sub_matmul_bigk_bf16":
             entry["launches_by_route"] = {"wgmma": launches[name]}
         if name in ("scatter_rows", "gather_rows"):
             bulk = sum(c[name + " bulk"] for c in by_path.values())
             entry["launches_by_route"] = {"bulk": bulk,
                                           "words": launches[name] - bulk}
-        entry.update({k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")})
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        entry.update({k: row[k] for k in keys})
+        if name == "rank1_panel_f64":
+            # each double route at each of its shapes
+            entry["by_route"] = {
+                r: [{"shape": list(x["shape"]), "mode": x["mode"],
+                     **{k: x[k] for k in keys}}
+                    for x in k1f64_rows if x["route"] == r]
+                for r in K1_ROUTES}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

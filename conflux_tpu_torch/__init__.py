@@ -70,7 +70,16 @@ def __getattr__(name):
         "cholesky_residual_blocked": "conflux_tpu_torch.validation",
         "lu_solve": "conflux_tpu_torch.solve",
         "cho_solve": "conflux_tpu_torch.solve",
+        "Grid": "conflux_tpu_torch.grid",
         "make_grid": "conflux_tpu_torch.grid",
+        "choose_grid_lu": "conflux_tpu_torch.grid",
+        "choose_grid_cholesky": "conflux_tpu_torch.grid",
+        "BlockCyclic": "conflux_tpu_torch.layout",
+        "distribute": "conflux_tpu_torch.layout",
+        "undistribute": "conflux_tpu_torch.layout",
+        "redistribute": "conflux_tpu_torch.layout",
+        "retile": "conflux_tpu_torch.layout",
+        "cholesky_residual": "conflux_tpu_torch.cholesky.single",
         "lu_25d": "conflux_tpu_torch.lu.p25d",
         "plu": "conflux_tpu_torch.lu.p25d",
         "cholesky_25d": "conflux_tpu_torch.cholesky.p25d",
@@ -88,11 +97,14 @@ def __getattr__(name):
     raise AttributeError(name)
 
 
-__all__ = ["ConfluxError", "ErrorCode", "lu_factor", "lu_residual",
+__all__ = ["Grid", "make_grid", "choose_grid_lu", "choose_grid_cholesky",
+           "BlockCyclic", "distribute", "undistribute", "redistribute",
+           "retile", "ConfluxError", "ErrorCode", "lu_factor",
+           "lu_residual", "cholesky_residual",
            "lu_factor_stepped", "cholesky_stepped",
            "clu_factor", "clu_residual", "clu_25d",
            "lu_residual_blocked", "cholesky_residual_blocked",
-           "lu_solve", "cho_solve", "make_grid", "lu_25d", "plu",
+           "lu_solve", "cho_solve", "lu_25d", "plu",
            "cholesky_25d", "pcholesky", "run_ranks", "pdgetrf", "pdpotrf",
            "plu_residual_25d", "pchol_residual_25d", "lu_residual_dist",
            "cholesky_residual_dist"]

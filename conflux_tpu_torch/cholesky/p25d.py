@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from conflux_tpu_torch.dispatch import normalize_variant
+from conflux_tpu_torch.dispatch import choose_variant, normalize_variant
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
 from conflux_tpu_torch.layout import (
     BlockCyclic,
@@ -208,6 +208,12 @@ def _check(G: torch.Tensor, desc: BlockCyclic):
         raise ConfluxError(ErrorCode.LAYOUT_MISMATCH,
                            f"block {tuple(G.shape)} is not the descriptor's "
                            f"{(desc.Ml, desc.Nl)}")
+
+
+def choose_unroll(desc: BlockCyclic, algorithm: str = "cholesky") -> bool:
+    """Round-1 compatibility shim over `dispatch.choose_variant`: True iff
+    the unrolled variant is selected."""
+    return choose_variant(desc, algorithm) == "unrolled"
 
 
 @ieee_fp32()

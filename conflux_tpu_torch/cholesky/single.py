@@ -90,11 +90,11 @@ def cholesky(A: torch.Tensor, v: int = 128, precision: str = "highest",
     TRSMs stay fp32. dtype: float32, float64 or bfloat16 storage (flat
     only: a bf16 A runs flat whatever `scheme` says). A is never
     modified."""
+    check_dtype(A, "cholesky")
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            f"cholesky expects a square matrix, got "
                            f"{tuple(A.shape)}")
-    check_dtype(A, "cholesky")
     if scheme not in ("flat", "recursive"):
         raise ConfluxError(ErrorCode.INVALID_SHAPE,
                            f"unknown scheme {scheme!r}")

@@ -527,8 +527,15 @@ DTYPES = (torch.float32, torch.float64, _BF16)
 
 
 def check_dtype(A: torch.Tensor, entry: str):
-    """Raise INVALID_TYPE unless A is float32, float64 or bfloat16; a
-    complex A is pointed to the complex entry points."""
+    """Raise INVALID_TYPE unless A is a float32, float64 or bfloat16
+    tensor: the tensor's device says where the factorization runs, so a
+    numpy array is pointed to `interop.from_numpy`, and a complex A to the
+    complex entry points."""
+    if not isinstance(A, torch.Tensor):
+        raise ConfluxError(ErrorCode.INVALID_TYPE,
+                           f"{entry} takes a torch.Tensor, not "
+                           f"{type(A).__name__}: make one on the device to "
+                           "factor on with interop.from_numpy(A, device)")
     if A.dtype in DTYPES:
         return
     hint = (" (complex LU: lu.csingle.clu_factor, lu.cp25d.clu_25d)"

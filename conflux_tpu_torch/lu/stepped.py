@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from conflux_tpu_torch.errors import ConfluxError, ErrorCode
-from conflux_tpu_torch.interop import resolve_device
+from conflux_tpu_torch.interop import host_tensor, resolve_device
 from conflux_tpu_torch.lu.single import (
     _getrf_crout,
     compute_dtype,
@@ -60,8 +60,9 @@ def working_buffer(A, device, entry: str, square: bool = False,
                    rows: int = 8192) -> torch.Tensor:
     """The one buffer a stepped driver factors in: A itself when it is a
     contiguous float32 or bfloat16 tensor on `device` (consumed), else one
-    `torch.empty` on `device` that A (a float32 numpy array, or another
-    tensor) is copied into `rows` rows at a time, A left as it was. Raises
+    `torch.empty` on `device` that A (a float32 or `ml_dtypes.bfloat16`
+    numpy array, or another tensor) is copied into `rows` rows at a time,
+    A left as it was. Raises
     the JAX drivers' errors: INVALID_SHAPE for a wide (or, `square`, a
     non-square) A, INVALID_TYPE for another dtype."""
     m, n = A.shape
@@ -72,7 +73,7 @@ def working_buffer(A, device, entry: str, square: bool = False,
                            f"{tuple(A.shape)}")
     given = isinstance(A, torch.Tensor)
     if not given:
-        A = torch.from_numpy(np.asarray(A))
+        A = host_tensor(A)      # a view: the copy below is by row blocks
     if A.dtype not in _DTYPES:
         raise ConfluxError(ErrorCode.INVALID_TYPE,
                            f"{entry} takes float32 or bfloat16, not "

@@ -11,8 +11,9 @@ and on the grid route beyond (one persistent CTA per SM). Its source note
 says what bounds it on the H100 and what each route does about that.
 
 Float64 blocks take K1 in double (`rank1_block_t_f64`,
-`csrc/rank1_panel_f64.cu`): the grid route in double, one route for every
-shape, with its own launch counter.
+`csrc/rank1_panel_f64.cu`): the same three routes in double, chosen in
+its C entry from (w, m) and the mode (`route_f64`, `cluster_max_m_f64`),
+each with its own launch counter.
 
 Its plain PyTorch version is `ops/panel._rank1_block_t`, which serves both
 dtypes; `ops/panel._rank1_dispatch` sends CPU tensors there and CUDA
@@ -39,11 +40,14 @@ LAUNCHES_CLUSTER = 0    # one thread-block cluster, pushes between its CTAs
 LAUNCHES_GRID = 0       # one persistent CTA per SM, a grid barrier a column
 LAUNCHES_TILE = 0       # forced blocks: each CTA eliminates its lanes alone
 
-# launches of the double kernel (rank1_panel_f64.cu, the grid route in
-# double, its one route), which float64 blocks take; counted apart
+# launches of the double kernel (rank1_panel_f64.cu), which float64
+# blocks take, in all and per route; counted apart
 LAUNCHES_F64 = 0
+LAUNCHES_F64_CLUSTER = 0
+LAUNCHES_F64_GRID = 0
+LAUNCHES_F64_TILE = 0
 
-# conflux_rank1_panel's routes (rank1_panel.cu, Route)
+# the routes' numbers in both sources (Route)
 ROUTES = {1: "cluster", 2: "grid", 3: "tile"}
 
 _lib = None
@@ -82,6 +86,10 @@ def _load_f64() -> ctypes.CDLL:
         lib.conflux_rank1_panel_f64.restype = i
         lib.conflux_rank1_panel_f64_scratch_doubles.argtypes = [i]
         lib.conflux_rank1_panel_f64_scratch_doubles.restype = i
+        lib.conflux_rank1_panel_f64_cluster_max_m.argtypes = [i]
+        lib.conflux_rank1_panel_f64_cluster_max_m.restype = i
+        lib.conflux_rank1_panel_f64_route.argtypes = [i, i, i]
+        lib.conflux_rank1_panel_f64_route.restype = i
         lib.conflux_rank1_panel_f64_error_string.argtypes = [i]
         lib.conflux_rank1_panel_f64_error_string.restype = ctypes.c_char_p
         _lib_f64 = lib
@@ -100,6 +108,19 @@ def route(w: int, m: int, forced: bool) -> str:
     the cluster route up to cluster_max_m(w) lanes and the grid route
     beyond."""
     return ROUTES[_load().conflux_rank1_panel_route(w, m, int(forced))]
+
+
+def cluster_max_m_f64(w: int) -> int:
+    """cluster_max_m for K1 in double."""
+    return _load_f64().conflux_rank1_panel_f64_cluster_max_m(w)
+
+
+def route_f64(w: int, m: int, forced: bool) -> str:
+    """route for K1 in double: forced blocks up to w = 128 take the tile
+    route, others the cluster route up to cluster_max_m_f64(w) lanes and
+    the grid route beyond."""
+    return ROUTES[_load_f64().conflux_rank1_panel_f64_route(w, m,
+                                                            int(forced))]
 
 
 def _check_block(Mt, avail_f, forced: bool, j0: int, dtype):
@@ -173,9 +194,10 @@ def rank1_block_t_f64(Mt: torch.Tensor, avail_f: torch.Tensor,
                       forced: bool = False, j0: int = 0,
                       finish: bool = False):
     """K1 in double (csrc/rank1_panel_f64.cu): `rank1_block_t`'s contract
-    for float64 Mt [w, m] and avail_f [1, m], on its one route (the grid
-    route in double) for every shape. Raises on any launch error."""
-    global LAUNCHES_F64
+    for float64 Mt [w, m] and avail_f [1, m], on the route `route_f64`
+    names. Raises on any launch error."""
+    global LAUNCHES_F64, LAUNCHES_F64_CLUSTER, LAUNCHES_F64_GRID, \
+        LAUNCHES_F64_TILE
     del finish
     _check_block(Mt, avail_f, forced, j0, torch.float64)
     w, m = Mt.shape
@@ -200,4 +222,11 @@ def rank1_block_t_f64(Mt: torch.Tensor, avail_f: torch.Tensor,
                            + lib.conflux_rank1_panel_f64_error_string(err)
                            .decode())
     LAUNCHES_F64 += 1
+    taken = ROUTES.get(route_taken.value)
+    if taken == "cluster":
+        LAUNCHES_F64_CLUSTER += 1
+    elif taken == "grid":
+        LAUNCHES_F64_GRID += 1
+    elif taken == "tile":
+        LAUNCHES_F64_TILE += 1
     return out, avail_o, piv, ok

@@ -123,6 +123,18 @@ def _inv_lower_rec(L: torch.Tensor, unit: bool, base: int = 128) -> torch.Tensor
     return out
 
 
+def inv_lower(L: torch.Tensor) -> torch.Tensor:
+    return _inv_lower_rec(L, unit=False)
+
+
+def inv_unit_lower(L: torch.Tensor) -> torch.Tensor:
+    return _inv_lower_rec(L, unit=True)
+
+
+def inv_upper(U: torch.Tensor) -> torch.Tensor:
+    return _inv_lower_rec(U.T, unit=False).T
+
+
 def _inv_diag_blocks(T: torch.Tensor, transpose: bool) -> torch.Tensor:
     """Inverses of all `_TRSM_SUB`-wide unit-lower diagonal blocks of T as
     one batched nilpotent squaring [nb, s, s]. transpose=True inverts the

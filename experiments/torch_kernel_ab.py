@@ -1,11 +1,11 @@
-"""A/B of kernel builds in one call: K1 (rank1_panel.cu), K3
-(schur_update.cu), K2 and K4 (bigk_gemm.cu) and K5/K6 (row_move.cu); and
-K2 against its plain version at the step shapes of a crout and a Cholesky
-factorization.
+"""A/B of kernel builds in one call: K1 (rank1_panel.cu), K1 in double
+(rank1_panel_f64.cu), K3 (schur_update.cu), K2 and K4 (bigk_gemm.cu) and
+K5/K6 (row_move.cu); and K2 against its plain version at the step shapes
+of a crout and a Cholesky factorization.
 
     python3 -m experiments.torch_kernel_ab --lib old=_ab/old \
         --lib new=conflux_tpu_torch/csrc [--lib name=dir ...] [--quick] \
-        [--only k1|k2|k3|k4|rows] [--steps]
+        [--only k1|k1f64|k2|k3|k4|rows] [--steps]
 
 Each --lib names a directory holding some of those sources (with the
 csrc/ headers they include, or beside csrc/, whose headers are on the
@@ -20,7 +20,9 @@ workspace in bytes for their split operands and report their route, the
 earlier K3 takes none and the earlier K2 a float count for split-K alone).
 
 Then, on the card, each build's kernels run at chip_smoke.py's shapes: K1
-at the main paths' blocks and the cluster/grid boundary, K3 at the flat
+at the main paths' blocks and the cluster/grid boundary, K1 in double at
+the f64 paths' blocks (chip_smoke.K1_F64_SHAPES) beside cuSOLVER's f64 LU
+of the block and the package's float32 K1 at the same shape, K3 at the flat
 LU's first and mid-run trailing updates in its three modes, K2 at
 chip_smoke.K2_SHAPES in its three modes, K4 at the three prof_pallas_gemm
 shapes for f32 and bf16, K5/K6 at the [32768, 32768] row moves and the
@@ -57,7 +59,8 @@ ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "_ab" / "build"
 K4_SHAPES = ((16384, 512, 16384), (8192, 1024, 8192), (8192, 8192, 8192))
 N, V = 32768, 1536
-STEMS = ("rank1_panel", "schur_update", "bigk_gemm", "row_move")
+STEMS = ("rank1_panel", "rank1_panel_f64", "schur_update", "bigk_gemm",
+         "row_move")
 # K1 (w, m, mode, j0): the main paths' blocks (crout's first and a late
 # panel, a mid flat/swap/split panel, the forced tiles of flat's pivot
 # rows and Cholesky's potrf, with their last and their second first
@@ -66,6 +69,12 @@ K1_CASES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
             (128, 6656, "finish", 0), (128, 1536, "forced", 1408),
             (64, 1536, "forced", 1472), (128, 1000, "unforced", 0),
             (128, 1536, "forced", 128), (64, 1536, "forced", 64))
+# K1 in double (w, m, mode, j0): chip_smoke.K1_F64_SHAPES, the f64 crout's
+# first block, a mid panel, a last-panels block and the forced pivot-row
+# and Cholesky tiles
+K1_F64_CASES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
+                (128, 2048, "unforced", 0), (128, 1536, "forced", 128),
+                (64, 1536, "forced", 64))
 # K3 (tag, m, ncols, k, c0, c1): chip_smoke's flat updates
 K3_SHAPES = (("first", 32768, 32768, 1536, 1536, 32768),
              ("mid", 17408, 32768, 1536, 16896, 32768))
@@ -184,6 +193,36 @@ def rank1_fn(lib):
                 ctypes.byref(route))
         if err:
             raise RuntimeError(f"conflux_rank1_panel error {err}")
+        routes[(w, m)] = route.value
+        return out, avo, piv, ok
+    run.routes = routes
+    return run
+
+
+def rank1_f64_fn(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f = lib.conflux_rank1_panel_f64
+    f.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, ctypes.POINTER(i)]
+    f.restype = i
+    lib.conflux_rank1_panel_f64_scratch_doubles.argtypes = [i]
+    lib.conflux_rank1_panel_f64_scratch_doubles.restype = i
+    routes = {}
+
+    def run(Mt, av, forced, j0):
+        w, m = Mt.shape
+        out, avo = torch.empty_like(Mt), torch.empty_like(av)
+        piv = torch.empty(w, dtype=torch.int32, device="cuda")
+        ok = torch.empty(w, dtype=torch.int32, device="cuda")
+        scratch = torch.empty(
+            lib.conflux_rank1_panel_f64_scratch_doubles(w),
+            dtype=torch.float64, device="cuda")
+        route = ctypes.c_int(-1)
+        err = f(Mt.data_ptr(), av.data_ptr(), out.data_ptr(), avo.data_ptr(),
+                piv.data_ptr(), ok.data_ptr(), scratch.data_ptr(), w, m,
+                int(forced), j0, torch.cuda.current_stream().cuda_stream,
+                ctypes.byref(route))
+        if err:
+            raise RuntimeError(f"conflux_rank1_panel_f64 error {err}")
         routes[(w, m)] = route.value
         return out, avo, piv, ok
     run.routes = routes
@@ -417,6 +456,72 @@ def ab_k1(libs, quick, unchecked=False):
         del Mt, av, ref
 
 
+def ab_k1f64(libs, quick, unchecked=False):
+    """K1 in double: each build against the plain version in f64 (pivots
+    equal, within chip_smoke's 1e-12 of max|ref|), in turns, beside
+    cuSOLVER's f64 LU of the block and the package's float32 K1 on the
+    same values rounded to f32."""
+    from conflux_tpu_torch.ops.panel import _rank1_block_t
+
+    names = [n for n in libs if "rank1_panel_f64" in libs[n]]
+    fns = {n: rank1_f64_fn(libs[n]["rank1_panel_f64"]) for n in names}
+    cases = K1_F64_CASES[::2] if quick else K1_F64_CASES
+    for w, m, mode, j0 in cases:
+        rng = np.random.default_rng(w + m + j0)
+        A = rng.standard_normal((w, m))
+        forced = mode == "forced"
+        if forced:
+            A[np.arange(w), j0 + np.arange(w)] += w
+        avail = np.ones((1, m))
+        avail[0, :j0] = 0.0
+        Mt, av = torch.from_numpy(A).cuda(), torch.from_numpy(avail).cuda()
+        ref = _rank1_block_t(Mt, av, j0, forced, mode == "finish")
+        keep = torch.ones(m, dtype=torch.bool, device="cuda")
+        if mode == "unforced":
+            keep[ref[2]] = False
+        scale = float(ref[0][:, keep].abs().max())
+        times = {nm: [] for nm in names}
+        for nm in turns(names):
+            got = fns[nm](Mt, av, forced, j0)
+            torch.cuda.synchronize()
+            diff = float((ref[0] - got[0])[:, keep].abs().max())
+            same = (torch.equal(ref[2], got[2].long())
+                    and torch.equal(ref[1], got[1])
+                    and torch.equal(ref[3], got[3] > 0))
+            if not (same and diff <= 1e-12 * scale):
+                msg = (f"K1 f64 {nm} [{w}, {m}] {mode}: disagrees (pivots "
+                       f"and avail equal {same}, rel {diff / scale:.3e})")
+                if not unchecked:
+                    raise SystemExit(msg)
+                print(msg + ", timed all the same (--unchecked)")
+            times[nm].append(per_call_ms(fns[nm], Mt, av, forced, j0))
+            del got
+        t_lib = None
+        if not forced:
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+            t_lib = per_call_ms(torch.linalg.lu_factor, Mt.T)
+            torch.backends.cuda.preferred_linalg_library("default")
+        t_f32 = per_call_ms(cuda_panel.rank1_block_t, Mt.float(),
+                            av.float(), forced, j0)
+        r32 = cuda_panel.route(w, m, forced)
+        # chip_smoke's bound: each input read and each output written
+        # once over 3.35 TB/s, or the fp64 operations over 34 TFLOP/s
+        bound = max((8.0 * (2 * w * m + 2 * m) + 8.0 * w) / 3.35e12,
+                    (1.0 * w * (w - 1) * m + w * m) / 34e12) * 1e3
+        for nm in names:
+            best = min(times[nm])
+            route = {1: "cluster", 2: "grid", 3: "tile"}.get(
+                fns[nm].routes.get((w, m)), "?")
+            lib = "none" if t_lib is None else f"{t_lib:.4f} ms"
+            print(f"K1 f64 [{w}, {m}] {mode:8s} j0={j0:<5d} {nm:10s} "
+                  f"({route}): {[round(t, 4) for t in times[nm]]} ms, best "
+                  f"{best:.4f} ms ({best / w * 1e3:.2f} us per column); "
+                  f"cuSOLVER f64 {lib}; f32 K1 ({r32}) {t_f32:.4f} ms; "
+                  f"bound {bound:.4f} ms")
+        del Mt, av, ref
+        torch.cuda.empty_cache()
+
+
 def ab_k3(libs, quick, unchecked=False):
     from conflux_tpu_torch.ops.gemm import _schur_update_t
 
@@ -633,13 +738,13 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="fewer shapes of each kernel")
     ap.add_argument("--only", action="append",
-                    choices=("k1", "k2", "k3", "k4", "rows"),
+                    choices=("k1", "k1f64", "k2", "k3", "k4", "rows"),
                     help="run only these kernels' A/B (repeatable)")
     ap.add_argument("--steps", action="store_true",
                     help="K2 against its plain version at the step shapes "
                     "of a crout and a Cholesky factorization")
     ap.add_argument("--unchecked", action="store_true",
-                    help="K1, K3: time builds that disagree with the plain "
+                    help="K1, K1 in double, K3: time builds that disagree with the plain "
                     "version (variants that leave out work, to attribute "
                     "time)")
     ap.add_argument("--sass", action="append", default=[],
@@ -653,9 +758,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}")
-    only = set(args.only or ("k1", "k2", "k3", "k4", "rows"))
+    only = set(args.only or ("k1", "k1f64", "k2", "k3", "k4", "rows"))
     if "k1" in only:
         ab_k1(libs, args.quick, args.unchecked)
+    if "k1f64" in only:
+        ab_k1f64(libs, args.quick, args.unchecked)
     if "k3" in only:
         ab_k3(libs, args.quick, args.unchecked)
     for key, fn in (("k2", ab_k2), ("k4", ab_k4), ("rows", ab_rows)):

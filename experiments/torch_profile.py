@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Device-time split of one factorization by the PyTorch port, on a card.
 
-    python3 -m experiments.torch_profile --scheme flat [--pin-ab]
+    python3 -m experiments.torch_profile --scheme flat [--pin-ab] \
+        [--dtype float32|float64|bfloat16]
 
 `--scheme` is crout, flat, recursive, cholesky, or swap or split (crout
-with that compaction). At N=32768, v=1536, 'high' (chip_smoke.py's paths
-and inputs), runs one
+with that compaction); `--dtype` the storage dtype (chip_smoke.py's dtype
+paths: the same inputs made in float64 or rounded to bfloat16). At
+N=32768, v=1536, 'high' (chip_smoke.py's paths and inputs), runs one
 warm-up, then times REPS unprofiled runs with CUDA events, then
 profiles one more run with torch.profiler and sums the self device time of
 the `DeviceType.CUDA` rows of `key_averages()` by kernel group (the
@@ -41,9 +43,15 @@ GROUPS = (
     ("K1 rank1 grid route", ("rank1_grid_kernel",)),
     ("K1 rank1 cluster route", ("rank1_cluster_kernel",)),
     ("K1 rank1 tile route", ("rank1_tile_kernel",)),
+    # K1 in double: its grid, cluster and tile routes (rank1_f64_kernel:
+    # the one grid route it had before them)
+    ("K1 f64 grid route", ("rank1_f64_grid_kernel", "rank1_f64_kernel")),
+    ("K1 f64 cluster route", ("rank1_f64_cluster_kernel",)),
+    ("K1 f64 tile route", ("rank1_f64_tile_kernel",)),
     ("bf16 GEMMs (cuBLAS nvjet)", ("nvjet", "bf16", "s16816gemm")),
-    ("fp32 GEMMs (cuBLAS, cutlass)", ("gemm", "sgemm", "xmma", "cutlass",
-                                      "splitKreduce")),
+    # fp32 GEMMs, or f64 ones on a float64 path
+    ("GEMMs (cuBLAS, cutlass)", ("gemm", "sgemm", "xmma", "cutlass",
+                                 "splitKreduce")),
     ("bf16 casts (hi/lo split)", ("bfloat16_copy", "BFloat16")),
     ("row gathers", ("index", "gather")),
     ("sort", ("sort", "radix", "Sort")),
@@ -66,7 +74,10 @@ def main():
                              "swap", "split"])
     ap.add_argument("--pin-ab", action="store_true",
                     help="time the entry point against its unpinned body")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "float64", "bfloat16"])
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
     from conflux_tpu_torch.cholesky.single import cholesky
@@ -75,16 +86,21 @@ def main():
 
     n = N
     g = torch.Generator(device="cuda").manual_seed(42)
+    # float64 inputs are made in float64; bfloat16 ones are the float32
+    # input rounded
+    made = torch.float64 if dtype == torch.float64 else torch.float32
     if args.scheme == "cholesky":
-        A = torch.rand(n, n, generator=g, device="cuda")
+        A = torch.rand(n, n, generator=g, device="cuda", dtype=made)
         A = A + A.T
         A.mul_(0.5)
         A.diagonal().add_(float(n))
+        A = A.to(dtype)
 
         def run(fn=cholesky):
             return fn(A, V, PRECISION)
     else:
-        A = 5.0 + torch.rand(n, n, generator=g, device="cuda")
+        A = (5.0 + torch.rand(n, n, generator=g, device="cuda",
+                              dtype=made)).to(dtype)
         compact = args.scheme in ("swap", "split")
         scheme = "crout" if compact else args.scheme
         compaction = args.scheme if compact else "gather"
@@ -129,7 +145,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"{args.scheme} N={n} v={V} '{PRECISION}' on {smi}: "
+    print(f"{args.scheme} {args.dtype} N={n} v={V} '{PRECISION}' on {smi}: "
           f"unprofiled wall ms {[round(t, 3) for t in walls]} (median "
           f"{wall:.3f}), device busy {busy:.3f} ms in the profiled run, "
           f"idle share {1 - busy / wall:.3f} of the unprofiled "

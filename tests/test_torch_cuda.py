@@ -5,7 +5,8 @@ plain PyTorch versions, the split pass of K3 and K2 against
 ops/tri._split_hi_lo bit for bit, the routes of K1, K2, K3, K4 and K5/K6
 by their launch counters, the crout LU (all three compactions), the flat
 LU and the Cholesky end to end on the card, and the entry points' results
-bit-identical whatever TF32 setting the caller chose. Without a card every
+bit-identical whatever TF32 setting the caller chose, and K1 in double
+(csrc/rank1_panel_f64.cu) on each of its routes. Without a card every
 test here skips.
 
 This file imports no jax, so it also runs where jax is not installed:
@@ -713,9 +714,9 @@ def test_tf32_on_leaves_results_bit_identical(card, api):
     assert all(torch.equal(r, g) for r, g in zip(ref, got))
 
 
-# K1 in double (csrc/rank1_panel_f64.cu, one route): the shapes of the
-# float32 route classes (tile-sized forced blocks, cluster-sized blocks, a
-# grid-sized one, and one wider than its shared-memory slab) in each mode
+# K1 in double (csrc/rank1_panel_f64.cu): the shapes of the route classes
+# (tile-sized forced blocks, cluster-sized blocks, a grid-sized one, and
+# one wider than its on-chip slab) in each mode
 K1_F64_CASES = ([(128, m, mode, 0) for m in (1000, 2048, 32768)
                  for mode in MODES]
                 + [(128, 1536, "forced", 1408), (64, 1536, "forced", 64),
@@ -746,6 +747,105 @@ def test_k1_f64_matches_plain_on_card(card, w, m, mode, j0):
     # f64 roundings
     diff = (ref[0][:, keep] - got[0][:, keep]).abs().max()
     assert diff <= 1e-12 * ref[0][:, keep].abs().max()
+
+
+def _k1_f64_counts():
+    return (cuda_panel.LAUNCHES, cuda_panel.LAUNCHES_F64,
+            cuda_panel.LAUNCHES_F64_CLUSTER, cuda_panel.LAUNCHES_F64_GRID,
+            cuda_panel.LAUNCHES_F64_TILE)
+
+
+def _k1_f64_check(Mt, avail, mode, j0, route, masked_read=True):
+    """One call of K1 in double against the plain version in float64: the
+    route route_f64 names and its counter (forced blocks up to w = 128 on
+    the tile route, others on the cluster route up to cluster_max_m_f64(w)
+    lanes, the grid route past it), pivots, ok and avail equal, the block
+    within 1e-12 of max|ref| (a few f64 roundings: the updates run in
+    another order than the two-level plain version), NaN where the plain
+    version has NaN; masked_read as in _k1_check."""
+    w, m = Mt.shape
+    forced, finish = mode == "forced", mode == "finish"
+    assert cuda_panel.route_f64(w, m, forced) == route
+    assert route == ("tile" if forced and w <= 128 else
+                     "cluster" if m <= cuda_panel.cluster_max_m_f64(w) else
+                     "grid")
+    ref = _rank1_block_t(Mt, avail, j0, forced, finish)
+    before = _k1_f64_counts()
+    got = cuda_panel.rank1_block_t_f64(Mt, avail, forced, j0, finish)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_k1_f64_counts(), before)) == (
+        0, 1, int(route == "cluster"), int(route == "grid"),
+        int(route == "tile"))
+    assert torch.equal(ref[2], got[2].long())
+    assert torch.equal(ref[3], got[3] > 0)
+    assert torch.equal(ref[1], got[1])
+    keep = torch.ones(m, dtype=torch.bool, device=Mt.device)
+    if mode == "unforced":
+        keep[ref[2]] = False      # stale in the plain version, unread
+    if not masked_read:
+        keep &= avail[0] > 0
+    r, g = ref[0][:, keep], got[0][:, keep]
+    assert torch.equal(torch.isnan(r), torch.isnan(g))
+    fin = ~torch.isnan(r)
+    if bool(fin.any()):
+        assert (r[fin] - g[fin]).abs().max() <= 1e-12 * r[fin].abs().max()
+
+
+# K1 in double per route, (w, m, mode, j0, route): the f64 crout's blocks
+# (the grid route with its last rows in registers at [128, 32768], all of
+# its slab in shared memory at [128, 17408], the global slab past 256
+# lanes a CTA at [128, 40000]; the cluster route at [128, 2048]), the
+# distributed f64 runs' [64, .] blocks, the forced tiles of the LU schemes
+# and of the f64 Cholesky (tile route), and forced blocks wider than the
+# tile route takes (cluster and grid)
+K1_F64_ROUTE_CASES = [
+    (128, 32768, "finish", 0, "grid"), (128, 32768, "unforced", 0, "grid"),
+    (128, 17408, "unforced", 0, "grid"), (128, 17408, "finish", 0, "grid"),
+    (128, 40000, "unforced", 0, "grid"), (64, 8192, "unforced", 0, "grid"),
+    (128, 2048, "unforced", 0, "cluster"), (128, 2048, "finish", 0, "cluster"),
+    (64, 1024, "unforced", 0, "cluster"), (128, 1000, "unforced", 0, "cluster"),
+    (128, 1536, "forced", 128, "tile"), (128, 1536, "forced", 1408, "tile"),
+    (64, 1536, "forced", 64, "tile"), (64, 1536, "forced", 1472, "tile"),
+    (64, 512, "forced", 64, "tile"), (160, 1536, "forced", 160, "cluster"),
+    (160, 3000, "forced", 160, "grid")]
+
+
+@pytest.mark.parametrize("w,m,mode,j0,route", K1_F64_ROUTE_CASES)
+def test_k1_f64_routes_match_plain_on_card(card, w, m, mode, j0, route):
+    Mt, avail = _block(m, w, mode, seed=m + j0 + 11, j0=j0)
+    _k1_f64_check(torch.from_numpy(Mt).to(card, torch.float64),
+                  torch.from_numpy(avail).to(card, torch.float64),
+                  mode, j0, route)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("w", [128, 64])
+@pytest.mark.parametrize("past", [0, 128])
+def test_k1_f64_routes_at_their_boundary(card, w, mode, past):
+    # the largest block the double cluster route takes, and 128 lanes more
+    # on its grid route; forced blocks on the tile route with j0 > 0
+    m = cuda_panel.cluster_max_m_f64(w) + past
+    j0 = 3 * w if mode == "forced" else 0
+    Mt, avail = _block(m, w, mode, seed=m + w + 13, j0=j0)
+    if j0 == 0:
+        avail[0, 17] = 0.0
+    route = ("tile" if mode == "forced" else
+             "cluster" if past == 0 else "grid")
+    _k1_f64_check(torch.from_numpy(Mt).to(card, torch.float64),
+                  torch.from_numpy(avail).to(card, torch.float64),
+                  mode, j0, route)
+
+
+@pytest.mark.parametrize("m,route", [(1536, "cluster"), (17408, "grid"),
+                                     (40000, "grid")])
+def test_k1_f64_nan_ranks_highest(card, m, route):
+    # as test_k1_nan_ranks_highest_on_both_routes, in double
+    w = 128
+    Mt, avail = _block(m, w, "unforced", seed=m)
+    Mt[0, 777] = np.nan
+    _k1_f64_check(torch.from_numpy(Mt).to(card, torch.float64),
+                  torch.from_numpy(avail).to(card, torch.float64),
+                  "unforced", 0, route, masked_read=False)
 
 
 def test_k1_f64_dispatch_never_reaches_the_plain_version(card, monkeypatch):
