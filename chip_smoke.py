@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: build (or load) every kernel from csrc/, one nvcc per source,
      started together: K1, the rank-1 panel kernel (rank1_panel.cu), and
      K1 in double (rank1_panel_f64.cu); K3, the fused trailing update
-     (schur_update.cu); K2, the big-K R - A@B with its bf16-operand
-     entry, and K4, the plain GEMM (bigk_gemm.cu); K5 and K6, the row
+     (schur_update.cu); K2, the big-K R - A@B (bigk_gemm.cu) with its
+     bf16-operand entry (its kernels in wgmma_bf16.cuh), and K4, the
+     plain GEMM (bigk_gemm.cu); K5 and K6, the row
      scatter and gather (row_move.cu);
   3. K1 vs plain: K1 against its plain PyTorch version on the same CUDA
      inputs, in unforced, forced and finish modes, at the main path's
@@ -41,9 +42,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      against its route counter (split pass + wgmma), R never written, a
      repeated call bit-identical; the split pass's time at the two largest
      calls beside the whole call's; then K2's bf16-operand entry against
-     its plain version and torch.mm(out_dtype=float32) in 'bf16' and
-     'bf16out' at the bf16 crout and Cholesky paths' first and last panel
-     updates;
+     its plain version in 'bf16' and 'bf16out' at the bf16 crout and
+     Cholesky paths' first and last panel updates (route, B's layout, no
+     operand copied, a transposed B read in place, R unwritten, repeats
+     bit-identical), timed beside torch.addmm, the one library call that
+     computes R - A@B, and torch.mm(out_dtype=float32), the product
+     alone;
   6. K4 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
      SYNCS instructions (cuobjdump); then K4 against its plain version at
      experiments/prof_pallas_gemm.py's shapes on each route, checked by
@@ -73,8 +77,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      from 32768: its panel is the JAX package's per-column loop, eager,
      with no kernel in either package): each one warm-up and REPS timed
      runs, its launches per kernel and route held to DTYPE_PATHS (K1 in
-     double's per route from the step loop through `route_f64`), its peak
-     memory, and the JAX package's gate for that dtype;
+     double's per route from the step loop through `route_f64`; the bf16
+     crout's and Cholesky's calls of K2's bf16-operand entry per route,
+     the Cholesky's all with B read K-major, through
+     `sub_matmul_bigk_bf16_route`), its peak memory, and the JAX
+     package's gate for that dtype;
  14. dist: the 2.5D rank programs, 8 ranks of one gloo world on this one
      card (kernels built in this process first, so the ranks only load
      them), in 'high' at N = 16384, v = 512 on a (2, 2, 2) grid: lu_25d
@@ -222,17 +229,21 @@ PATH_LAUNCHES["split"]["gather_rows"] = K6_SPLIT
 # flat does), float64 (K1 in double; every product an IEEE f64 torch.mm)
 # and complex64 (no kernel in either package: the panel is an eager
 # per-column loop, the products real torch.mm). Cholesky under bf16
-# storage keeps the library's bf16 pass: K2's bf16-operand entry was
-# slower than torch.mm(out_dtype=float32) at the path's first and last
-# step shapes on the H100 (phase_k2_bf16, cholesky/single.py).
+# storage runs its panel updates on K2's bf16-operand entry too, B the
+# transposed view F[k:k+w, :k].T read in place: over the path's 21 step
+# shapes the entry beat the library's product and subtraction,
+# col - schur_dot(L21, L1t, 'bf16'), that the path ran before
+# (experiments/torch_kernel_ab.py --only k2bf16 --steps on the H100;
+# cholesky/single.py).
 _PL = PATH_LAUNCHES
 DTYPE_PATHS = {
     "bf16 crout": ("flat", {
         "rank1_panel": _PL["flat"]["rank1_panel"],
         "sub_matmul_bigk_bf16": _PL["crout"]["sub_matmul_bigk"]}),
     "bf16 flat": ("flat", _PL["flat"]),
-    "bf16 cholesky": ("cholesky",
-                      {"rank1_panel": _PL["cholesky"]["rank1_panel"]}),
+    "bf16 cholesky": ("cholesky", {
+        "rank1_panel": _PL["cholesky"]["rank1_panel"],
+        "sub_matmul_bigk_bf16": _PL["cholesky"]["sub_matmul_bigk"]}),
     "f64 crout": ("crout",
                   {"rank1_panel_f64": _PL["crout"]["rank1_panel"]}),
     "f64 cholesky": ("cholesky",
@@ -253,6 +264,37 @@ DTYPE_GATES = {"bf16 crout": 0.05 / N, "bf16 flat": 0.05 / N,
 
 
 K1_ROUTES = ("cluster", "grid", "tile")
+# K2's bf16-operand entry: its routes (cuda_gemm.sub_matmul_bigk_bf16_route)
+# and its other counts, launches with B read transposed in place and
+# operands copied first
+BF16_ROUTES = ("tiles", "registers", "split-k", "cooperative")
+BF16_COUNTS = BF16_ROUTES + ("k-major", "copies")
+
+
+def bf16_entry_calls(path: str, n: int = N, v: int = V):
+    """(m, n, k, B transposed) of every call of K2's bf16-operand entry in
+    one n, v factorization of the bf16 `path`: crout's panel update [n - k,
+    w] and pivot-row refresh [w, n - k - w] at each step with k > 0 (the
+    refresh where k + w < n), Cholesky's panel update [n - k, w] with B
+    the view F[k:k+w, :k].T."""
+    calls = []
+    for k in range(v, n, v):
+        w = min(v, n - k)
+        calls.append((n - k, w, k, path.endswith("cholesky")))
+        if path.endswith("crout") and k + w < n:
+            calls.append((w, n - k - w, k, False))
+    return calls
+
+
+def bf16_route_launches(route, path: str) -> dict:
+    """The bf16 entry's counts per factorization of `path` (BF16_COUNTS),
+    where route(m, n, k) names the route a call takes on this card."""
+    calls = bf16_entry_calls(path)
+    taken = [route(m, nn, k) for m, nn, k, _ in calls]
+    out = {f"sub_matmul_bigk_bf16 {r}": taken.count(r) for r in BF16_ROUTES}
+    out["sub_matmul_bigk_bf16 k-major"] = sum(bt for *_, bt in calls)
+    out["sub_matmul_bigk_bf16 copies"] = 0
+    return out
 
 
 def k1_route_launches(route, kernel: str = "rank1_panel") -> dict:
@@ -322,7 +364,7 @@ K1_F64_SHAPES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
 K1_F64_TOL = 1e-12
 # K2's bf16-operand entry (tag, m, k, n, B transposed): the bf16 crout
 # path's first and last panel updates, and the bf16 Cholesky path's (B the
-# transposed view F[k:k+w, :k].T, copied by the wrapper first)
+# transposed view F[k:k+w, :k].T, read in place)
 K2_BF16_SHAPES = (("crout panel k=1536", N - V, V, V, False),
                   ("crout panel k=32256", N % V, N - N % V, N % V, False),
                   ("Cholesky k=1536", N - V, V, V, True),
@@ -456,8 +498,10 @@ def phase_build():
     print(f"  schur_update: dynamic shared memory "
           f"{cuda_gemm._load().conflux_schur_update_smem_bytes()} bytes "
           f"per CTA ('high'), sub_matmul_bigk "
-          f"{cuda_gemm._load_bigk().conflux_sub_matmul_bigk_smem_bytes()} "
-          f"(rank1_panel: sized per call, up to the card's limit)")
+          f"{cuda_gemm._load_bigk().conflux_sub_matmul_bigk_smem_bytes()}, "
+          f"its bf16-operand entry "
+          f"{cuda_gemm._load_bigk().conflux_sub_matmul_bigk_bf16_smem_bytes()}"
+          f" (rank1_panel: sized per call, up to the card's limit)")
 
 
 def phase_k1():
@@ -626,10 +670,57 @@ def phase_k1_f64():
     return rows
 
 
+def _full_bf16_reduction(fn):
+    """fn(R, A, B, alpha=-1) with cuBLAS's bf16 reduced-precision
+    reduction off, the caller's setting given back afterwards."""
+    import torch
+
+    def call(R, A, B):
+        knob = torch.backends.cuda.matmul
+        before = knob.allow_bf16_reduced_precision_reduction
+        knob.allow_bf16_reduced_precision_reduction = False
+        try:
+            return fn(R, A, B, alpha=-1)
+        finally:
+            knob.allow_bf16_reduced_precision_reduction = before
+    return call
+
+
+def _addmm_bf16(mode: str):
+    """(fn(R, A, B), label): the one PyTorch call that computes R - A @ B
+    on bf16 operands in `mode`: torch.addmm(R, A, B, out_dtype=float32,
+    alpha=-1) for 'bf16' (aten::addmm.dtype), torch.addmm(R_bf16, A, B,
+    alpha=-1) for 'bf16out' with bf16 reduced-precision reduction off
+    (cuBLAS could otherwise sum split-K partials in bf16, another
+    function). Where this torch refuses the out_dtype overload, the
+    'bf16' yardstick is R - torch.mm(A, B, out_dtype=float32), labelled as
+    two calls. Neither is used anywhere in the port."""
+    import torch
+
+    if mode == "bf16out":
+        return (_full_bf16_reduction(torch.addmm),
+                "torch.addmm(R_bf16, A, B, alpha=-1)")
+    try:
+        a = torch.ones(8, 8, dtype=torch.bfloat16, device="cuda")
+        torch.addmm(torch.zeros(8, 8, device="cuda"), a, a,
+                    out_dtype=torch.float32, alpha=-1)
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        print(f"torch.addmm refuses out_dtype=float32 on bf16 operands "
+              f"({type(e).__name__}): the 'bf16' yardstick is two calls")
+        return (lambda R, A, B: R - torch.mm(A, B, out_dtype=torch.float32),
+                "R - torch.mm(A, B, out_dtype=float32), two calls")
+    return (lambda R, A, B: torch.addmm(R, A, B, out_dtype=torch.float32,
+                                        alpha=-1),
+            "torch.addmm(R, A, B, out_dtype=float32, alpha=-1)")
+
+
 def phase_k2_bf16():
     """K2's bf16-operand entry against its plain version (R - schur_dot(A,
-    B, 'bf16'), rounded once into R's type) and against the library's bf16
-    product torch.mm(A, B, out_dtype=float32), in 'bf16' and 'bf16out'."""
+    B, 'bf16'), rounded once into R's type), in 'bf16' and 'bf16out', at
+    K2_BF16_SHAPES; timed beside the one library call that computes the
+    same R - A @ B (`_addmm_bf16`) and, for continuity, the library's
+    product alone, torch.mm(A, B, out_dtype=float32). A transposed B must
+    be read in place (K-major, no copy)."""
     import torch
 
     from conflux_tpu_torch.ops import cuda_gemm
@@ -646,7 +737,7 @@ def phase_k2_bf16():
              .to(torch.bfloat16))
         R32 = torch.randn(m, n, generator=g, device="cuda")
         scale = float(torch.mm(A.float().abs(), B.float().abs()).max())
-        t_l = per_call_ms(lambda: torch.mm(A, B, out_dtype=torch.float32))
+        t_mm = per_call_ms(lambda: torch.mm(A, B, out_dtype=torch.float32))
         for mode in ("bf16", "bf16out"):
             R = R32.to(torch.bfloat16) if mode == "bf16out" else R32
             R0 = R.clone()
@@ -655,10 +746,16 @@ def phase_k2_bf16():
                       cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES)
             got = cuda_gemm.sub_matmul_bigk_bf16(R, A, B, mode)
             torch.cuda.synchronize()
+            last = dict(cuda_gemm.BF16_LAST)
             moved = (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES - before[0],
                      cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES - before[1])
             if moved != (0, 1):
                 fail(f"K2 bf16 {tag} {mode}: counters moved {moved}")
+            if last["copied"]:
+                fail(f"K2 bf16 {tag} {mode}: operands {last['copied']} "
+                     "were copied first")
+            if last["b_layout"] != ("k-major" if bt else "mn-major"):
+                fail(f"K2 bf16 {tag} {mode}: B read {last['b_layout']}")
             if not torch.equal(R, R0):
                 fail(f"K2 bf16 {tag} {mode}: R was written")
             if not torch.equal(got, cuda_gemm.sub_matmul_bigk_bf16(R, A, B,
@@ -676,34 +773,35 @@ def phase_k2_bf16():
                          f"{K3_TOL:.0e})")
                 good = diff <= K3_TOL * scale
             del d
-            t_k = per_call_ms(cuda_gemm.sub_matmul_bigk_bf16, R, A, B, mode)
+            if not good:
+                fail(f"K2 bf16 {tag} {mode}: kernel and plain disagree "
+                     f"({check})")
+            library, label = _addmm_bf16(mode)
+            t_k, t_l = _in_turns(
+                lambda: cuda_gemm.sub_matmul_bigk_bf16(R, A, B, mode),
+                lambda: library(R, A, B))
             t_p = per_call_ms(_sub_matmul_bigk_t, R, A, B, mode)
             bound = _bound(2.0 * m * n * k,
                            2.0 * R.element_size() * m * n
                            + 2.0 * (m * k + k * n), BF16_FLOP_S)
             tflops = 2.0 * m * n * k / (t_k * 1e-3) / 1e12
-            print(f"K2 bf16 operands {tag} R [{m}, {n}] k {k}"
-                  f"{' (B transposed: copied first)' if bt else ''} "
-                  f"{mode:7s}: max|diff| {diff:.3e}, {check}, repeat "
-                  f"bit-identical, kernel {t_k:.4f} ms ({tflops:.1f} "
-                  f"TFLOP/s), plain {t_p:.4f} ms, torch.mm(out_dtype="
-                  f"float32) {t_l:.4f} ms, bound {bound[0]:.4f} ms "
-                  f"({bound[1]})")
-            if not good:
-                fail(f"K2 bf16 {tag} {mode}: kernel and plain disagree "
-                     f"({check})")
+            print(f"K2 bf16 operands {tag} R [{m}, {n}] k {k} {mode:7s}: "
+                  f"route {last['route']}, B {last['b_layout']}"
+                  f"{' (transposed, read in place)' if bt else ''}, max|diff| "
+                  f"{diff:.3e}, {check}, repeat bit-identical, R unwritten, "
+                  f"kernel {t_k:.4f} ms ({tflops:.1f} TFLOP/s), {label} "
+                  f"{t_l:.4f} ms, torch.mm(out_dtype=float32) {t_mm:.4f} ms "
+                  f"(the product alone), plain {t_p:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})")
             rows.append({"shape": tag, "mode": mode, "max_abs_err": diff,
                          "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                         "bound_ms": bound[0], "bound_by": bound[1]})
+                         "library_call": label, "mm_ms": t_mm,
+                         "bound_ms": bound[0], "bound_by": bound[1],
+                         "route": last["route"],
+                         "b_layout": last["b_layout"]})
             del ref, got, R, R0
         del A, B, R32
         torch.cuda.empty_cache()
-    chol = [r for r in rows if r["shape"].startswith("Cholesky")
-            and r["mode"] == "bf16"]
-    print("K2 bf16 operands at the bf16 Cholesky path's first and last "
-          "steps: kernel " + ", ".join(f"{r['ms']:.4f}" for r in chol)
-          + " ms, torch.mm(out_dtype=float32) "
-          + ", ".join(f"{r['library_ms']:.4f}" for r in chol) + " ms")
     return rows
 
 
@@ -1286,6 +1384,18 @@ def _counters():
             "rank1_panel_f64": (cuda_panel, "LAUNCHES_F64"),
             "sub_matmul_bigk_bf16": (cuda_gemm,
                                      "SUB_MATMUL_BIGK_BF16_LAUNCHES"),
+            "sub_matmul_bigk_bf16 tiles": (
+                cuda_gemm, "SUB_MATMUL_BIGK_BF16_TILES_LAUNCHES"),
+            "sub_matmul_bigk_bf16 registers": (
+                cuda_gemm, "SUB_MATMUL_BIGK_BF16_REGISTERS_LAUNCHES"),
+            "sub_matmul_bigk_bf16 split-k": (
+                cuda_gemm, "SUB_MATMUL_BIGK_BF16_SPLITK_LAUNCHES"),
+            "sub_matmul_bigk_bf16 cooperative": (
+                cuda_gemm, "SUB_MATMUL_BIGK_BF16_COOP_LAUNCHES"),
+            "sub_matmul_bigk_bf16 k-major": (
+                cuda_gemm, "SUB_MATMUL_BIGK_BF16_KMAJOR_LAUNCHES"),
+            "sub_matmul_bigk_bf16 copies": (
+                cuda_gemm, "SUB_MATMUL_BIGK_BF16_COPIES"),
             # routes, counted apart
             "rank1_panel cluster": (cuda_panel, "LAUNCHES_CLUSTER"),
             "rank1_panel grid": (cuda_panel, "LAUNCHES_GRID"),
@@ -1351,6 +1461,9 @@ def _path_want(path: str) -> dict:
         want.update(ROUTE_LAUNCHES_F64[base])
     want["schur_update wgmma"] = want["schur_update"]
     want["sub_matmul_bigk wgmma"] = want["sub_matmul_bigk"]
+    want.update({f"sub_matmul_bigk_bf16 {r}": 0 for r in BF16_COUNTS})
+    if want["sub_matmul_bigk_bf16"]:
+        want.update(BF16_ROUTE_LAUNCHES[path])
     return want
 
 
@@ -2017,6 +2130,9 @@ def _loop_want(path: str, n: int, v: int) -> dict:
         want[f"rank1_panel {r}"] = taken.count(r)
     want["schur_update wgmma"] = want["schur_update"]
     want["sub_matmul_bigk wgmma"] = want["sub_matmul_bigk"]
+    want.update({f"sub_matmul_bigk_bf16 {r}": 0 for r in BF16_COUNTS})
+    if want["sub_matmul_bigk_bf16"]:
+        want.update(BF16_ROUTE_LAUNCHES[path])
     return want
 
 
@@ -2327,9 +2443,11 @@ def _pick(table, **want):
     return next(r for r in table if all(r[k] == v for k, v in want.items()))
 
 
-# K1's and K1 in double's per route and path, set once the card is known
+# K1's and K1 in double's per route and path, and the bf16 entry's per
+# route and bf16 path, set once the card is known
 ROUTE_LAUNCHES = {}
 ROUTE_LAUNCHES_F64 = {}
+BF16_ROUTE_LAUNCHES = {}
 
 
 def _walled(label: str, phase, *args):
@@ -2353,6 +2471,14 @@ def main() -> int:
     ROUTE_LAUNCHES.update(k1_route_launches(cuda_panel.route))
     ROUTE_LAUNCHES_F64.update(k1_route_launches(cuda_panel.route_f64,
                                                 "rank1_panel_f64"))
+    from conflux_tpu_torch.ops import cuda_gemm
+
+    BF16_ROUTE_LAUNCHES.update({
+        p: bf16_route_launches(cuda_gemm.sub_matmul_bigk_bf16_route, p)
+        for p in ("bf16 crout", "bf16 cholesky")})
+    print(f"K2 bf16 operands: launches per factorization by route "
+          f"({cuda_gemm._load_bigk().conflux_sub_matmul_bigk_bf16_clusters()}"
+          f" ping-pong clusters of 4 CTAs at once): {BF16_ROUTE_LAUNCHES}")
     print(f"K1 cluster route up to m = {cuda_panel.cluster_max_m(128)} at "
           f"w = 128 and {cuda_panel.cluster_max_m(64)} at w = 64, forced "
           f"blocks on the tile route; launches per factorization by route: "
@@ -2446,7 +2572,14 @@ def main() -> int:
             entry["launches_by_route"] = {
                 "wgmma": sum(c[name + " wgmma"] for c in by_path.values())}
         if name == "sub_matmul_bigk_bf16":
-            entry["launches_by_route"] = {"wgmma": launches[name]}
+            entry["launches_by_route"] = {
+                r: sum(c[f"{name} {r}"] for c in by_path.values())
+                for r in BF16_ROUTES}
+            entry["b_read_k_major"] = sum(c[f"{name} k-major"]
+                                          for c in by_path.values())
+            entry["operand_copies"] = sum(c[f"{name} copies"]
+                                          for c in by_path.values())
+            entry["library_call"] = k2b_rows[0]["library_call"]
         if name in ("scatter_rows", "gather_rows"):
             bulk = sum(c[name + " bulk"] for c in by_path.values())
             entry["launches_by_route"] = {"bulk": bulk,

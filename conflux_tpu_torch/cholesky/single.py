@@ -12,8 +12,10 @@ Dtypes, as in the JAX package: float32 and float64 in both schemes (f64
 throughout: K1 in double on the card, IEEE f64 products), and bfloat16
 STORAGE on the flat scheme (a bf16 input with any scheme runs flat): the
 buffer and the factor stay bf16 while each column, the tile potrf and the
-TRSM run in f32, and the panel update is one 'bf16' product on the bf16
-operands (K2's bf16-operand entry on the card).
+TRSM run in f32, and the panel update is col - L21 @ L1t in 'bf16' on the
+bf16 operands: on the card K2's bf16-operand entry, which reads the
+transposed view L1t = F[k:k+w, :k].T in place; on the CPU its plain
+version, `col - schur_dot(L21, L1t, "bf16")` bit for bit.
 """
 
 from __future__ import annotations
@@ -48,11 +50,13 @@ def potrf_inplace(F: torch.Tensor, v: int,
         col = F[k:, k:k + w].to(compute_dtype(F.dtype))
         if k > 0:
             L21, L1t = F[k:, :k], F[k:k + w, :k].T
-            # K2 in 'high' only: in 'bf16' on f32 operands it ties with
-            # the library's one pass at these shapes
-            # (experiments/torch_kernel_ab.py --steps)
+            # K2 in 'high' and on bf16 storage's operands (its bf16
+            # entry beat the library's product and subtraction over the
+            # bf16 path's 21 steps on the H100); on f32 operands in
+            # 'bf16' it ties with the library's one pass at these shapes
+            # (experiments/torch_kernel_ab.py --steps, --only k2bf16)
             if bf16s:
-                col = col - schur_dot(L21, L1t, "bf16")
+                col = sub_matmul_bigk(col, L21, L1t, "bf16")
             elif precision == "high" and F.dtype == torch.float32:
                 col = sub_matmul_bigk(col, L21, L1t, precision)
             else:

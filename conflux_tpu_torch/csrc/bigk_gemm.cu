@@ -49,7 +49,14 @@
 // K2 also takes bfloat16 A and B (the crout LU's and Cholesky's panel
 // updates under bf16 storage, whose operands are already bf16) in 'bf16'
 // and 'bf16out': conflux_sub_matmul_bigk_bf16 builds the tensor maps on the
-// caller's operands and skips the split pass, which would only copy them.
+// caller's operands (a transposed B on its stored rows, K-major) and runs
+// kernels of its own, wgmma_bf16.cuh: ping-pong consumers on [128, 128]
+// tiles whose epilogue (R staged by TMA, subtracted, TMA-stored) runs
+// under the other consumer's products, with split-K summed inside the
+// kernel by each tile's last split; for long K on many tiles, cooperative
+// [128, 256] tiles. Its route (ping-pong tiles with the TMA epilogue or
+// from the registers, ping-pong split-K, cooperative tiles) and B's
+// layout are reported to the caller.
 //
 // K4: C = A @ B with an fp32 result, the plain GEMM skeleton. Replaces
 // conflux_tpu/ops/pallas_gemm.py:matmul_pallas (kernel _mm_kernel). A and B
@@ -76,6 +83,7 @@
 
 #include <algorithm>
 
+#include "wgmma_bf16.cuh"
 #include "wgmma_split.cuh"
 
 namespace {
@@ -281,6 +289,295 @@ cudaError_t launch_bigk(const Maps& maps, const T* r, int ldr, T* out,
   }
   return start_bigk<kX3, false, T>(maps, map_o, tma_o, r, ldr, out, ldo,
                                    nullptr, m, nt, p, stream);
+}
+
+// ----------------------------------------------- K2 on bf16 operands
+
+namespace b16 = conflux_bf16;
+
+// split K only under this many waves of super-tiles, each split at least
+// kBf16MinSplitChunks chunks; a split costs about kBf16SplitCost chunk
+// times (its partial plane written, then read by the tile's last split)
+constexpr int kBf16Waves = 2;
+constexpr int kBf16MinSplitChunks = 16;
+constexpr int kBf16SplitCost = 3;
+
+// the clusters of the bf16 kernel the card runs at once (one CTA an SM)
+int bf16_clusters();
+
+// The units of an [m, nt] output at depth k: whole super-tiles, or, under
+// kBf16Waves waves of them, the split count with the least estimated time
+// (the busiest cluster's chunks plus the splits' cost). A cluster's units
+// run one after another (its consumers take turns on the tensor cores).
+b16::Plan plan_bf16(int m, int nt, int k) {
+  b16::Plan p;
+  p.super_m = (m + b16::kCM * b16::kTM - 1) / (b16::kCM * b16::kTM);
+  p.super_n = (nt + b16::kCN * b16::kTN - 1) / (b16::kCN * b16::kTN);
+  p.chunks = (k + b16::kTK - 1) / b16::kTK;
+  p.splits = 1;
+  p.per = p.chunks;
+  const long long supers = (long long)p.super_m * p.super_n;
+  const long long clusters = bf16_clusters();
+  if (clusters < 1 || supers >= kBf16Waves * clusters) return p;
+  long long best = (supers + clusters - 1) / clusters * p.chunks;
+  for (int s = 2; s <= p.chunks / kBf16MinSplitChunks; ++s) {
+    const int per = (p.chunks + s - 1) / s;
+    const int used = (p.chunks + per - 1) / per;   // none left empty
+    const long long cost = (supers * used + clusters - 1) / clusters * per +
+                           kBf16SplitCost * used;
+    if (cost < best) {
+      best = cost;
+      p.splits = used;
+      p.per = per;
+    }
+  }
+  return p;
+}
+
+// tiles of the grid padded to whole super-tiles: the split-K counters
+int bf16_tiles(const b16::Plan& p) {
+  return p.super_m * b16::kCM * p.super_n * b16::kCN;
+}
+
+// the bf16 entry's routes (reported through its int* route): the kind,
+// plus kBf16BKMajor where B was read transposed in place
+enum Bf16Route {
+  kBf16TilesTma = 1,        // ping-pong tiles, R and out through TMA
+  kBf16TilesRegisters = 2,  // ping-pong tiles, R and out from the registers
+  kBf16SplitK = 3,          // ping-pong split-K, summed by each tile's last
+  kBf16Coop = 4,            // cooperative [128, 256] tiles
+  kBf16BKMajor = 8,
+};
+
+// The cooperative route takes long K on many tiles: more than
+// kBf16PingpongChunks chunks (where the mainloop outweighs the epilogue
+// the ping-pong route hides) and at least kBf16Waves waves of its tiles
+// (fewer go to the ping-pong route's finer tiles and split-K)
+constexpr int kBf16PingpongChunks = 32;
+
+b16::CoPlan plan_coop(int m, int nt, int k) {
+  const int tiles_m = (m + b16::kTM - 1) / b16::kTM;
+  return {(tiles_m + b16::kCoCM - 1) / b16::kCoCM,
+          (nt + b16::kCoBN - 1) / b16::kCoBN, (k + b16::kTK - 1) / b16::kTK};
+}
+
+bool use_coop(int m, int nt, int k) {
+  if (plan_bf16(m, nt, k).splits > 1) return false;
+  const b16::CoPlan c = plan_coop(m, nt, k);
+  return c.chunks > kBf16PingpongChunks &&
+         (long long)c.super_m * b16::kCoCM * c.tiles_n >=
+             (long long)kBf16Waves * sm_count();
+}
+
+size_t bf16_planes_bytes(const b16::Plan& p) {
+  return p.splits > 1 ? (size_t)bf16_tiles(p) * p.splits * b16::kTileElems *
+                            sizeof(float)
+                      : 0;
+}
+
+// a launch of a bf16 kernel in `clusters` clusters of `size` CTAs
+cudaLaunchConfig_t bf16_config(int clusters, int size, size_t smem,
+                               cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * size));
+  cfg.blockDim = dim3(b16::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = size;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters of `size` CTAs of `kernel` (smem bytes a CTA) the card
+// runs at once; 0 if it cannot tell
+template <typename K>
+int max_clusters(K kernel, int size, size_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      bf16_config(sm_count() / size, size, smem, nullptr, &attr);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess)
+    return 0;
+  return clusters;
+}
+
+int bf16_clusters() {
+  static const int n = max_clusters(
+      b16::sub_matmul_bf16_kernel<float, false, b16::kEpiTma>, b16::kCluster,
+      b16::Cfg<b16::kEpiTma>::kSmem);
+  return n;
+}
+
+int bf16_coop_clusters() {
+  static const int n =
+      max_clusters(b16::sub_matmul_bf16_coop_kernel<float, false>,
+                   b16::kCoCM, b16::kCoSmem);
+  return n;
+}
+
+template <typename T, bool kBT>
+cudaError_t start_coop(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                       const CUtensorMap& map_o, bool tma_o, const T* r,
+                       int ldr, T* out, int ldo, int m, int nt,
+                       const b16::CoPlan& p, cudaStream_t stream) {
+  auto kernel = b16::sub_matmul_bf16_coop_kernel<T, kBT>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(b16::kCoSmem));
+  if (e != cudaSuccess) return e;
+  const long long units = (long long)p.super_m * p.tiles_n;
+  const int most = bf16_coop_clusters();
+  if (units > 0x7fffffffLL || most < 1) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      bf16_config(static_cast<int>(units < most ? units : most), b16::kCoCM,
+                  b16::kCoSmem, stream, &attr);
+  const cudaError_t l = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, map_o,
+                                           tma_o, r, ldr, out, ldo, m, nt, p);
+  return l != cudaSuccess ? l : cudaGetLastError();
+}
+
+template <typename T, bool kBT, int kEpi>
+cudaError_t start_bf16(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                       const CUtensorMap& map_r, const CUtensorMap& map_o,
+                       const T* r, int ldr, T* out, int ldo, float* planes,
+                       int* counters, int m, int nt, const b16::Plan& p,
+                       cudaStream_t stream) {
+  auto kernel = b16::sub_matmul_bf16_kernel<T, kBT, kEpi>;
+  const size_t smem = b16::Cfg<kEpi>::kSmem;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long units = (long long)p.super_m * p.super_n * p.splits;
+  const int most = bf16_clusters();
+  if (units > 0x7fffffffLL || most < 1) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      bf16_config(static_cast<int>(units < most ? units : most),
+                  b16::kCluster, smem, stream, &attr);
+  const cudaError_t l = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, map_r,
+                                           map_o, r, ldr, out, ldo, planes,
+                                           counters, m, nt, p);
+  return l != cudaSuccess ? l : cudaGetLastError();
+}
+
+template <typename T, bool kBT>
+cudaError_t route_bf16(int kind, const CUtensorMap& map_a,
+                       const CUtensorMap& map_b, const CUtensorMap& map_r,
+                       const CUtensorMap& map_o, const T* r, int ldr, T* out,
+                       int ldo, float* planes, int* counters, int m, int nt,
+                       const b16::Plan& p, cudaStream_t s) {
+  switch (kind) {
+    case kBf16TilesTma:
+      return start_bf16<T, kBT, b16::kEpiTma>(map_a, map_b, map_r, map_o, r,
+                                               ldr, out, ldo, planes,
+                                               counters, m, nt, p, s);
+    case kBf16TilesRegisters:
+      return start_bf16<T, kBT, b16::kEpiDirect>(map_a, map_b, map_r, map_o,
+                                                  r, ldr, out, ldo, planes,
+                                                  counters, m, nt, p, s);
+    default:
+      return start_bf16<T, kBT, b16::kEpiSplit>(map_a, map_b, map_r, map_o,
+                                                 r, ldr, out, ldo, planes,
+                                                 counters, m, nt, p, s);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the cooperative route: A in [128][64] boxes, B in [64 k][64 n] boxes
+// (MN-major) or [256 n][64 k] ones (K-major)
+template <typename T>
+cudaError_t launch_coop(const T* r, int ldr, T* out, int ldo, const void* a,
+                        int lda, const void* b, int ldb, bool b_kmajor, int m,
+                        int nt, int k, cudaStream_t stream, int* route) {
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap map_a, map_b, map_o{};
+  cudaError_t e = make_map(&map_a, bf, 2, a, m, k, lda, b16::kTM, b16::kTK);
+  if (e == cudaSuccess)
+    e = b_kmajor ? make_map(&map_b, bf, 2, b, nt, k, ldb,
+                            b16::kCoBN / b16::kCoCM, b16::kTK)
+                 : make_map(&map_b, bf, 2, b, k, nt, ldb, b16::kTK, 64);
+  // out through TMA stores where TMA takes it (a store box clipped at an
+  // unaligned last column writes past it), else from the registers
+  constexpr size_t kT = sizeof(T);
+  const bool tma_o = aligned16(out) && ldo >= nt && (ldo * kT) % 16 == 0 &&
+                     (nt * kT) % 16 == 0;
+  if (e == cudaSuccess && tma_o)
+    e = make_map(&map_o,
+                 kT == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 kT, out, m, nt, ldo, 64, 128 / kT);
+  if (e != cudaSuccess) return e;
+  *route = kBf16Coop + (b_kmajor ? kBf16BKMajor : 0);
+  const b16::CoPlan p = plan_coop(m, nt, k);
+  return b_kmajor ? start_coop<T, true>(map_a, map_b, map_o, tma_o, r, ldr,
+                                        out, ldo, m, nt, p, stream)
+                  : start_coop<T, false>(map_a, map_b, map_o, tma_o, r, ldr,
+                                         out, ldo, m, nt, p, stream);
+}
+
+template <typename T>
+cudaError_t launch_bf16(const T* r, int ldr, T* out, int ldo, const void* a,
+                        int lda, const void* b, int ldb, bool b_kmajor, int m,
+                        int nt, int k, void* ws, long long ws_bytes,
+                        int* counters, int counter_slots,
+                        cudaStream_t stream, int* route) {
+  if (use_coop(m, nt, k))
+    return launch_coop(r, ldr, out, ldo, a, lda, b, ldb, b_kmajor, m, nt, k,
+                       stream, route);
+  const b16::Plan p = plan_bf16(m, nt, k);
+  const bool split = p.splits > 1;
+  if (split && (ws_bytes < static_cast<long long>(bf16_planes_bytes(p)) ||
+                reinterpret_cast<uintptr_t>(ws) % 256 != 0 ||
+                counter_slots < bf16_tiles(p)))
+    return cudaErrorInvalidValue;
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap map_a, map_b, map_r{}, map_o{};
+  // A in slices of kTM / kCN rows, a K-major B in slices of kTN / kCM
+  // rows (each CTA of a cluster row or column loads one), an MN-major B
+  // in [64 k][64 n] boxes
+  cudaError_t e = make_map(&map_a, bf, 2, a, m, k, lda, b16::kTM / b16::kCN,
+                           b16::kTK);
+  if (e == cudaSuccess)
+    e = b_kmajor ? make_map(&map_b, bf, 2, b, nt, k, ldb,
+                            b16::kTN / b16::kCM, b16::kTK)
+                 : make_map(&map_b, bf, 2, b, k, nt, ldb, b16::kTK, 64);
+  // R and out through TMA where TMA takes both: 16-byte-aligned bases and
+  // row strides, and out's width a multiple of 16 bytes (a store box
+  // clipped at an unaligned last column writes past it)
+  constexpr size_t kT = sizeof(T);
+  const bool tma_io = aligned16(r) && aligned16(out) && ldr >= nt &&
+                      ldo >= nt && (ldr * kT) % 16 == 0 &&
+                      (ldo * kT) % 16 == 0 && (nt * kT) % 16 == 0;
+  const int kind = split ? kBf16SplitK
+                   : tma_io ? kBf16TilesTma
+                            : kBf16TilesRegisters;
+  const CUtensorMapDataType tt = kT == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (e == cudaSuccess && kind == kBf16TilesTma)
+    e = make_map(&map_r, tt, kT, r, m, nt, ldr, b16::kTM, 128 / kT);
+  if (e == cudaSuccess && kind == kBf16TilesTma)
+    e = make_map(&map_o, tt, kT, out, m, nt, ldo, b16::kTM, 128 / kT);
+  if (e != cudaSuccess) return e;
+  *route = kind + (b_kmajor ? kBf16BKMajor : 0);
+  float* planes = static_cast<float*>(ws);
+  return b_kmajor ? route_bf16<T, true>(kind, map_a, map_b, map_r, map_o, r,
+                                        ldr, out, ldo, planes, counters, m,
+                                        nt, p, stream)
+                  : route_bf16<T, false>(kind, map_a, map_b, map_r, map_o, r,
+                                         ldr, out, ldo, planes, counters, m,
+                                         nt, p, stream);
 }
 
 // ------------------------------------------------- cp.async and mma.sync
@@ -906,51 +1203,71 @@ int conflux_sub_matmul_bigk(const void* r, int ldr, void* out, int ldo,
                                      m, nt, p, s);
 }
 
-// bytes of workspace K2's bf16-operand entry needs for that call: the
-// split-K planes where K splits (no split copies)
+// K2's bf16-operand entry for an [m, nt] output at depth k on the current
+// device: its K splits (1: whole tiles), the bytes of workspace its
+// split-K planes take (0 without split-K), the zeroed int counters it
+// needs (one a tile with split-K, else 0); the ping-pong route's clusters
+// the card runs at once, and the kernels' largest dynamic shared memory
+int conflux_sub_matmul_bigk_bf16_splits(int m, int nt, int k) {
+  return plan_bf16(m, nt, k).splits;
+}
 long long conflux_sub_matmul_bigk_bf16_workspace_bytes(int m, int nt, int k) {
-  const Plan p = plan(m, nt, k);
-  return static_cast<long long>(workspace_bytes(p, m, nt, k, 1) -
-                                layout(m, nt, k, 1).total());
+  return static_cast<long long>(bf16_planes_bytes(plan_bf16(m, nt, k)));
+}
+int conflux_sub_matmul_bigk_bf16_counters(int m, int nt, int k) {
+  const b16::Plan p = plan_bf16(m, nt, k);
+  return p.splits > 1 ? bf16_tiles(p) : 0;
+}
+int conflux_sub_matmul_bigk_bf16_clusters() { return bf16_clusters(); }
+
+// the route kind (Bf16Route, without kBf16BKMajor) the entry takes for an
+// [m, nt] output at depth k whose R and out are contiguous rows of
+// r_bytes-byte elements at 16-byte-aligned bases
+int conflux_sub_matmul_bigk_bf16_kind(int m, int nt, int k, int r_bytes) {
+  if (use_coop(m, nt, k)) return kBf16Coop;
+  if (plan_bf16(m, nt, k).splits > 1) return kBf16SplitK;
+  return ((long long)nt * r_bytes) % 16 == 0 ? kBf16TilesTma
+                                              : kBf16TilesRegisters;
+}
+int conflux_sub_matmul_bigk_bf16_smem_bytes() {
+  return static_cast<int>(std::max({b16::Cfg<b16::kEpiTma>::kSmem,
+                                    b16::Cfg<b16::kEpiSplit>::kSmem,
+                                    b16::kCoSmem}));
 }
 
 // out = R - A @ B on `stream` for bfloat16 A [m, k] (row stride lda) and
-// B [k, nt] (ldb), read in place: the tensor maps are built on the
-// caller's operands and the split pass is skipped (a bf16 element is its
-// own hi part), so 'bf16' (R float32) and 'bf16out' (R bfloat16, r_bf16)
-// run the one-pass mainloop and epilogue of conflux_sub_matmul_bigk. Both
-// operands must suit TMA: 16-byte-aligned bases, row strides multiples of
-// 8 elements. ws holds ws_bytes bytes, at least conflux_sub_matmul_bigk_
-// bf16_workspace_bytes(m, nt, k), 256-byte aligned (the split-K planes).
-// *route receives the kernel launched (1: wgmma). Returns 0 or a
-// cudaError_t code; never synchronises.
+// B [k, nt], both read in place by TMA: B row-major with row stride ldb,
+// or, with b_kmajor, stored transposed (B[i, j] at b[j * ldb + i], the
+// stored [nt, k] rows read K-major). R float32 ('bf16') or bfloat16
+// ('bf16out', r_bf16), rounded once into out. Both operands must suit
+// TMA: 16-byte-aligned bases, row strides multiples of 8 elements. With
+// split-K, ws holds ws_bytes bytes, at least conflux_sub_matmul_bigk_bf16_
+// workspace_bytes(m, nt, k), 256-byte aligned, and counters
+// counter_slots >= conflux_sub_matmul_bigk_bf16_counters(m, nt, k) ints,
+// zero on entry and left zero (no other launch may use them meanwhile).
+// *route receives the route (Bf16Route: 1 ping-pong tiles through TMA, 2
+// ping-pong tiles from the registers, 3 ping-pong split-K, 4 cooperative
+// tiles; plus 8 where B was read K-major). Returns 0 or a cudaError_t
+// code; never synchronises.
 int conflux_sub_matmul_bigk_bf16(const void* r, int ldr, void* out, int ldo,
                                  int r_bf16, const void* a, int lda,
-                                 const void* b, int ldb, int m, int nt,
-                                 int k, void* ws, long long ws_bytes,
+                                 const void* b, int ldb, int b_kmajor, int m,
+                                 int nt, int k, void* ws, long long ws_bytes,
+                                 int* counters, int counter_slots,
                                  void* stream, int* route) {
-  if (m < 1 || nt < 1 || k < 1 || !tma_ok(a, lda, k) || !tma_ok(b, ldb, nt))
+  if (m < 1 || nt < 1 || k < 1 || !tma_ok(a, lda, k) ||
+      !tma_ok(b, ldb, b_kmajor ? k : nt))
     return cudaErrorInvalidValue;
-  const Plan p = plan(m, nt, k);
-  if (ws_bytes < conflux_sub_matmul_bigk_bf16_workspace_bytes(m, nt, k) ||
-      reinterpret_cast<uintptr_t>(ws) % 256 != 0)
-    return cudaErrorInvalidValue;
-  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  Maps maps{};
-  cudaError_t e = make_map(&maps.a_hi, bf, 2, a, m, k, lda, kBM, kBK);
-  if (e == cudaSuccess)
-    e = make_map(&maps.b_hi, bf, 2, b, k, nt, ldb, kBK, 64);
-  if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* planes = static_cast<float*>(ws);
-  *route = kBigkRouteWgmma;
-  return r_bf16 ? launch_bigk<false>(
-                      maps, static_cast<const __nv_bfloat16*>(r), ldr,
-                      static_cast<__nv_bfloat16*>(out), ldo, planes, m, nt,
-                      p, s)
-                : launch_bigk<false>(maps, static_cast<const float*>(r), ldr,
-                                     static_cast<float*>(out), ldo, planes,
-                                     m, nt, p, s);
+  if (r_bf16)
+    return launch_bf16(static_cast<const __nv_bfloat16*>(r), ldr,
+                       static_cast<__nv_bfloat16*>(out), ldo, a, lda, b, ldb,
+                       b_kmajor != 0, m, nt, k, ws, ws_bytes, counters,
+                       counter_slots, s, route);
+  return launch_bf16(static_cast<const float*>(r), ldr,
+                     static_cast<float*>(out), ldo, a, lda, b, ldb,
+                     b_kmajor != 0, m, nt, k, ws, ws_bytes, counters,
+                     counter_slots, s, route);
 }
 
 // C = A @ B on `stream`, C [m, n] float32 with row stride ldc; A [m, k]

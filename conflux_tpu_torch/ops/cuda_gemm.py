@@ -23,6 +23,7 @@ CPU tensors there and CUDA tensors here.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,6 +37,21 @@ SCHUR_UPDATE_WGMMA_LAUNCHES = 0  # K3 split pass + wgmma (every call)
 SUB_MATMUL_BIGK_LAUNCHES = 0    # K2 (its split-K sum included)
 SUB_MATMUL_BIGK_WGMMA_LAUNCHES = 0  # K2 split pass + wgmma (every call)
 SUB_MATMUL_BIGK_BF16_LAUNCHES = 0  # K2 on bf16 operands, read in place
+# ... per route (csrc/wgmma_bf16.cuh): ping-pong tiles with R and out
+# through TMA, ping-pong tiles from the registers, ping-pong split-K summed
+# inside the kernel, cooperative [128, 256] tiles; the launches whose B
+# was read transposed in place (K-major), and the operands copied first
+# because TMA could not read them
+SUB_MATMUL_BIGK_BF16_TILES_LAUNCHES = 0
+SUB_MATMUL_BIGK_BF16_REGISTERS_LAUNCHES = 0
+SUB_MATMUL_BIGK_BF16_SPLITK_LAUNCHES = 0
+SUB_MATMUL_BIGK_BF16_COOP_LAUNCHES = 0
+SUB_MATMUL_BIGK_BF16_KMAJOR_LAUNCHES = 0
+SUB_MATMUL_BIGK_BF16_COPIES = 0
+# the last launch of the bf16 entry: {"route": "tiles" | "registers" |
+# "split-k" | "cooperative", "b_layout": "k-major" | "mn-major", "copied":
+# names of the operands copied first}
+BF16_LAST = {}
 MATMUL_LAUNCHES = 0             # K4, every route
 MATMUL_WGMMA_LAUNCHES = 0       # K4 bf16 on TMA-aligned operands: wgmma
 MATMUL_MMA_SYNC_LAUNCHES = 0    # K4 bf16 on other operands: mma.sync
@@ -46,6 +62,10 @@ _ROUTE_MMA_SYNC, _ROUTE_WGMMA = 1, 2
 # conflux_sub_matmul_bigk's (bigk_gemm.cu, BigkRoute)
 _K3_ROUTE_WGMMA = 1
 _K2_ROUTE_WGMMA = 1
+# conflux_sub_matmul_bigk_bf16's (bigk_gemm.cu, Bf16Route): the kind, plus
+# 8 where B was read K-major
+_BF16_ROUTES = {1: "tiles", 2: "registers", 3: "split-k", 4: "cooperative"}
+_BF16_KMAJOR = 8
 
 _lib = None
 _bigk_lib = None
@@ -89,11 +109,20 @@ def _load_bigk() -> ctypes.CDLL:
         lib.conflux_sub_matmul_bigk_smem_bytes.argtypes = []
         lib.conflux_sub_matmul_bigk_smem_bytes.restype = i
         lib.conflux_sub_matmul_bigk_bf16.argtypes = [p, i, p, i, i, p, i,
-                                                     p, i, i, i, i, p, ll,
-                                                     p, ctypes.POINTER(i)]
+                                                     p, i, i, i, i, i, p, ll,
+                                                     p, i, p,
+                                                     ctypes.POINTER(i)]
         lib.conflux_sub_matmul_bigk_bf16.restype = i
+        lib.conflux_sub_matmul_bigk_bf16_kind.argtypes = [i, i, i, i]
+        lib.conflux_sub_matmul_bigk_bf16_kind.restype = i
+        for fn in ("splits", "counters"):
+            f = getattr(lib, f"conflux_sub_matmul_bigk_bf16_{fn}")
+            f.argtypes = [i, i, i]
+            f.restype = i
         lib.conflux_sub_matmul_bigk_bf16_workspace_bytes.argtypes = [i, i, i]
         lib.conflux_sub_matmul_bigk_bf16_workspace_bytes.restype = ll
+        lib.conflux_sub_matmul_bigk_bf16_smem_bytes.argtypes = []
+        lib.conflux_sub_matmul_bigk_bf16_smem_bytes.restype = i
         lib.conflux_matmul.argtypes = [p, i, p, i, p, i, i, i, i, i, p,
                                        ctypes.POINTER(i)]
         lib.conflux_matmul.restype = i
@@ -260,43 +289,63 @@ def sub_matmul_bigk(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     return out
 
 
+def _tma_readable(x: torch.Tensor) -> bool:
+    """TMA reads x [rows, cols] in place: unit column stride, a row stride
+    that is a multiple of 8 elements and no shorter than its rows, a
+    16-byte-aligned base."""
+    return ((x.shape[1] <= 1 or x.stride(1) == 1) and x.stride(0) % 8 == 0
+            and x.stride(0) >= x.shape[1] and x.data_ptr() % 16 == 0)
+
+
 def _tma_operand(x: torch.Tensor) -> torch.Tensor:
-    """x itself where TMA can read it in place (unit column stride, a row
-    stride that is a multiple of 8 elements, a 16-byte-aligned base), else
-    a copy whose rows are padded to 8 elements (a transposed view such as
-    Cholesky's F[k:k+w, :k].T, or an odd offset)."""
-    rows, cols = x.shape
-    if ((cols <= 1 or x.stride(1) == 1) and x.stride(0) % 8 == 0
-            and x.stride(0) >= cols and x.data_ptr() % 16 == 0):
+    """x itself where TMA can read it in place, else a copy whose rows are
+    padded to 8 elements (an odd offset or row stride)."""
+    if _tma_readable(x):
         return x
+    rows, cols = x.shape
     buf = torch.empty((rows, (cols + 7) // 8 * 8), dtype=x.dtype,
                       device=x.device)
     return buf[:, :cols].copy_(x)
 
 
-def sub_matmul_bigk_bf16(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-                         mode: str) -> torch.Tensor:
-    """R - A @ B on the card for bfloat16 A [m, k] and B [k, n], as a new
-    tensor of R's dtype (R float32 in 'bf16', bfloat16 in 'bf16out'); R is
-    read only. K2's bf16-operand entry: the kernel's tensor maps are built
-    on A and B themselves and no split pass runs; an operand TMA cannot
-    read in place is first copied into a padded buffer
-    (`_tma_operand`). The workspace holds split-K's partial products where
-    K splits. With k = 0 the result is a copy of R and nothing is
-    launched."""
-    global SUB_MATMUL_BIGK_BF16_LAUNCHES
+# zeroed split-K counters of the bf16 entry, one buffer per (device,
+# stream): the kernel leaves them zero, and launches on one stream run in
+# order
+_BF16_COUNTERS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_workspace(device: int, m: int, n: int, k: int):
+    """(bytes of split-K planes, counters) the bf16 entry needs for an
+    [m, n] output at depth k on card `device` (the current one)."""
+    lib = _load_bigk()
+    return (lib.conflux_sub_matmul_bigk_bf16_workspace_bytes(m, n, k),
+            lib.conflux_sub_matmul_bigk_bf16_counters(m, n, k))
+
+
+def _bf16_counters(dev: torch.device, stream: int, slots: int):
+    key = (dev, stream)
+    buf = _BF16_COUNTERS.get(key)
+    if buf is None or buf.numel() < slots:
+        buf = torch.zeros(max(slots, 1024), dtype=torch.int32, device=dev)
+        _BF16_COUNTERS[key] = buf
+    return buf
+
+
+def check_bf16_operands(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                        mode: str):
+    """Raise unless R - A @ B suits the bf16-operand entry: mode 'bf16'
+    (R float32) or 'bf16out' (R bfloat16), A [m, k] and B [k, n] 2-D
+    bfloat16. Checks nothing of the device, so CPU tensors are refused
+    on these grounds before any launch too."""
     if mode not in ("bf16", "bf16out"):
         raise ValueError(f"bf16 operands take 'bf16' or 'bf16out', not "
                          f"{mode!r}")
     check_mode(R, mode)
     if A.dtype != torch.bfloat16 or B.dtype != torch.bfloat16:
         raise TypeError(f"A and B must be bfloat16, not {A.dtype}, {B.dtype}")
-    if A.dim() != 2 or B.dim() != 2:
+    if R.dim() != 2 or A.dim() != 2 or B.dim() != 2:
         raise ValueError("sub_matmul_bigk_bf16 takes 2-D tensors")
-    for name, t in (("A", A), ("B", B)):
-        if not t.is_cuda or t.device != R.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {R.device}")
-    _check_2d("R", R, R.device)
     m, n = R.shape
     k = A.shape[1]
     if tuple(A.shape) != (m, k) or tuple(B.shape) != (k, n):
@@ -304,32 +353,105 @@ def sub_matmul_bigk_bf16(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                          f"B {tuple(B.shape)} do not fit R - A @ B")
     if max(m, n, k) >= 2 ** 31:
         raise ValueError("a dimension does not fit an int")
+
+
+def sub_matmul_bigk_bf16(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                         mode: str) -> torch.Tensor:
+    """R - A @ B on the card for bfloat16 A [m, k] and B [k, n], as a new
+    tensor of R's dtype (R float32 in 'bf16', bfloat16 in 'bf16out'); R is
+    read only. K2's bf16-operand entry (csrc/wgmma_bf16.cuh): the kernel's
+    tensor maps are built on A and B themselves; a B stored transposed
+    (unit row stride, as Cholesky's F[k:k+w, :k].T) is read in place as
+    its stored rows, K-major. Only an operand TMA cannot read (an odd
+    offset or row stride) is first copied into a padded buffer
+    (`_tma_operand`). The kernel picks its route from the shape:
+    cooperative [128, 256] tiles for long K on many tiles, else ping-pong
+    [128, 128] tiles (split-K where tiles are few). The workspace holds split-K's partial products
+    where K splits. `BF16_LAST` reports the route, B's layout and the
+    copies of the last launch. With k = 0 the result is a copy of R and
+    nothing is launched."""
+    global SUB_MATMUL_BIGK_BF16_LAUNCHES, SUB_MATMUL_BIGK_BF16_COPIES
+    global SUB_MATMUL_BIGK_BF16_TILES_LAUNCHES
+    global SUB_MATMUL_BIGK_BF16_REGISTERS_LAUNCHES
+    global SUB_MATMUL_BIGK_BF16_SPLITK_LAUNCHES
+    global SUB_MATMUL_BIGK_BF16_COOP_LAUNCHES
+    global SUB_MATMUL_BIGK_BF16_KMAJOR_LAUNCHES
+    check_bf16_operands(R, A, B, mode)
+    for name, t in (("A", A), ("B", B)):
+        if not t.is_cuda or t.device != R.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {R.device}")
+    _check_2d("R", R, R.device)
+    m, n = R.shape
+    k = A.shape[1]
     out = torch.empty((m, n), dtype=R.dtype, device=R.device)
     if m == 0 or n == 0:
         return out
     if k == 0:
         return out.copy_(R)
-    A, B = _tma_operand(A), _tma_operand(B)
-    for name, t in (("A", A), ("B", B)):
-        _check_2d(name, t, R.device)
+    # B stored transposed: its stored [n, k] rows, read K-major in place
+    kmajor = (n > 1 and B.stride(0) == 1 and B.stride(1) != 1
+              and _tma_readable(B.T))
+    copied = tuple(name for name, t in (("A", A), ("B", B))
+                   if not (name == "B" and kmajor) and not _tma_readable(t))
+    A = _tma_operand(A)
+    Bs = B.T if kmajor else _tma_operand(B)
     lib = _load_bigk()
     route = ctypes.c_int(-1)
     with torch.cuda.device(R.device):
-        ws_bytes = lib.conflux_sub_matmul_bigk_bf16_workspace_bytes(m, n, k)
-        ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8,
-                         device=R.device)
         stream = torch.cuda.current_stream(R.device).cuda_stream
+        ws_bytes, slots = _bf16_workspace(R.device.index, m, n, k)
+        # split-K only: the planes (freed into the caching allocator after
+        # the launch, which orders their reuse on this stream) and the
+        # zeroed counters
+        ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=R.device)
+              if ws_bytes else None)
+        counters = _bf16_counters(R.device, stream, slots) if slots else None
         err = lib.conflux_sub_matmul_bigk_bf16(
             R.data_ptr(), R.stride(0), out.data_ptr(), out.stride(0),
             int(mode == "bf16out"), A.data_ptr(), A.stride(0),
-            B.data_ptr(), B.stride(0), m, n, k, ws.data_ptr(), ws_bytes,
-            stream, ctypes.byref(route))
+            Bs.data_ptr(), Bs.stride(0), int(kmajor), m, n, k,
+            None if ws is None else ws.data_ptr(), ws_bytes,
+            None if counters is None else counters.data_ptr(),
+            0 if counters is None else counters.numel(), stream,
+            ctypes.byref(route))
     if err != 0:
         raise RuntimeError("sub_matmul_bigk_bf16 launch failed: "
                            + lib.conflux_bigk_gemm_error_string(err)
                            .decode())
+    kind = _BF16_ROUTES[route.value & 7]
     SUB_MATMUL_BIGK_BF16_LAUNCHES += 1
+    SUB_MATMUL_BIGK_BF16_COPIES += len(copied)
+    if kind == "tiles":
+        SUB_MATMUL_BIGK_BF16_TILES_LAUNCHES += 1
+    elif kind == "registers":
+        SUB_MATMUL_BIGK_BF16_REGISTERS_LAUNCHES += 1
+    elif kind == "split-k":
+        SUB_MATMUL_BIGK_BF16_SPLITK_LAUNCHES += 1
+    else:
+        SUB_MATMUL_BIGK_BF16_COOP_LAUNCHES += 1
+    if route.value & _BF16_KMAJOR:
+        SUB_MATMUL_BIGK_BF16_KMAJOR_LAUNCHES += 1
+    BF16_LAST.clear()
+    BF16_LAST.update(route=kind, b_layout="k-major" if route.value
+                     & _BF16_KMAJOR else "mn-major", copied=copied)
     return out
+
+
+def sub_matmul_bigk_bf16_splits(m: int, n: int, k: int) -> int:
+    """How many K splits the bf16 entry takes for an [m, n] output and
+    depth k on the current card (1: whole tiles)."""
+    return _load_bigk().conflux_sub_matmul_bigk_bf16_splits(m, n, k)
+
+
+def sub_matmul_bigk_bf16_route(m: int, n: int, k: int,
+                               r_dtype: torch.dtype = torch.float32) -> str:
+    """The route ("tiles", "registers", "split-k" or "cooperative") the
+    bf16 entry takes on the current card for an [m, n] output at depth k
+    whose R (of r_dtype) is a fresh contiguous tensor, as the drivers'
+    panels and pivot rows are."""
+    size = torch.empty((), dtype=r_dtype).element_size()
+    return _BF16_ROUTES[_load_bigk().conflux_sub_matmul_bigk_bf16_kind(
+        m, n, k, size)]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

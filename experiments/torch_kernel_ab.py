@@ -5,7 +5,7 @@ of a crout and a Cholesky factorization.
 
     python3 -m experiments.torch_kernel_ab --lib old=_ab/old \
         --lib new=conflux_tpu_torch/csrc [--lib name=dir ...] [--quick] \
-        [--only k1|k1f64|k2|k3|k4|rows] [--steps]
+        [--only k1|k1f64|k2|k2bf16|k3|k4|rows] [--steps]
 
 Each --lib names a directory holding some of those sources (with the
 csrc/ headers they include, or beside csrc/, whose headers are on the
@@ -32,6 +32,19 @@ and every result is compared with the plain version (K1: pivots equal and
 within 1e-4 of max|ref|; K2, K3 and K4 within 1e-5 of max(|A|@|B|), plus
 one bf16 ulp for 'bf16out'; K5/K6 bit for bit). Prints one line per shape
 and build, and the card's name and power limit.
+
+--only k2bf16 holds K2's bf16-operand entry (conflux_sub_matmul_bigk_bf16)
+of each build at chip_smoke.K2_BF16_SHAPES, in 'bf16' and 'bf16out', in
+turns with the one library call that computes R - A @ B
+(`torch.addmm(R, A, B, out_dtype=float32, alpha=-1)` in 'bf16',
+`torch.addmm(R_bf16, A, B, alpha=-1)` with bf16 reduced-precision
+reduction off in 'bf16out') and the plain version: each build, addmm,
+plain, plain, addmm, each build in reverse, the lesser of each one's two
+times. An earlier build whose entry takes no transposed B gets B^T copied
+first, as its wrapper did, and that copy is timed with it. With --steps
+the same turns run at the 41 big-K products of one N=32768, v=1536 bf16
+crout and the 21 of one bf16 Cholesky (B the view G[k:k+w, :k].T), in
+'bf16', with the sums over each factorization.
 
 --steps times the package's K2 (ops/cuda_gemm.sub_matmul_bigk) against
 its plain version (`R - schur_dot(A, B, mode)`, what the drivers ran
@@ -308,6 +321,86 @@ def bigk_fn(lib):
     return run
 
 
+def bigk_bf16_fn(lib):
+    """K2's bf16-operand entry of a build: run(R, A, B, mode). The present
+    entry reads a transposed B (unit row stride) in place and takes
+    split-K counters; an earlier one (no conflux_sub_matmul_bigk_bf16_
+    counters) reads row-major operands only, so B^T is copied first."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f = lib.conflux_sub_matmul_bigk_bf16
+    size = lib.conflux_sub_matmul_bigk_bf16_workspace_bytes
+    size.argtypes = [i, i, i]
+    size.restype = ll
+    present = hasattr(lib, "conflux_sub_matmul_bigk_bf16_counters")
+    if present:
+        f.argtypes = [p, i, p, i, i, p, i, p, i, i, i, i, i, p, ll, p, i, p,
+                      ctypes.POINTER(i)]
+        slots = lib.conflux_sub_matmul_bigk_bf16_counters
+        slots.argtypes = [i, i, i]
+        slots.restype = i
+        counters = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+    else:
+        f.argtypes = [p, i, p, i, i, p, i, p, i, i, i, i, p, ll, p,
+                      ctypes.POINTER(i)]
+    f.restype = i
+
+    def run(R, A, B, mode):
+        m, k = A.shape
+        n = B.shape[1]
+        kmajor = present and B.stride(0) == 1 and n > 1
+        if not kmajor and B.stride(1) != 1:
+            B = B.contiguous()
+        Bs = B.T if kmajor else B
+        out = torch.empty((m, n), dtype=R.dtype, device="cuda")
+        nb = size(m, n, k)
+        ws = torch.empty(max(nb, 1), dtype=torch.uint8, device="cuda")
+        route = ctypes.c_int(-1)
+        args = [R.data_ptr(), R.stride(0), out.data_ptr(), out.stride(0),
+                int(mode == "bf16out"), A.data_ptr(), A.stride(0),
+                Bs.data_ptr(), Bs.stride(0)]
+        stream = torch.cuda.current_stream().cuda_stream
+        if present:
+            assert slots(m, n, k) <= counters.numel()
+            err = f(*args, int(kmajor), m, n, k, ws.data_ptr(), nb,
+                    counters.data_ptr(), counters.numel(), stream,
+                    ctypes.byref(route))
+        else:
+            err = f(*args, m, n, k, ws.data_ptr(), nb, stream,
+                    ctypes.byref(route))
+        if err:
+            raise RuntimeError(f"conflux_sub_matmul_bigk_bf16 error {err}")
+        run.route = route.value
+        return out
+    return run
+
+
+def library_sub_bf16(mode):
+    """(fn(R, A, B), label): the one PyTorch call that computes R - A @ B
+    on bf16 operands in `mode`, or, where this torch refuses the out_dtype
+    overload, R - torch.mm(A, B, out_dtype=float32) labelled as two
+    calls."""
+    if mode == "bf16out":
+        def one(R, A, B):
+            knob = torch.backends.cuda.matmul
+            before = knob.allow_bf16_reduced_precision_reduction
+            knob.allow_bf16_reduced_precision_reduction = False
+            try:
+                return torch.addmm(R, A, B, alpha=-1)
+            finally:
+                knob.allow_bf16_reduced_precision_reduction = before
+        return one, "addmm"
+    try:
+        a = torch.ones(8, 8, dtype=torch.bfloat16, device="cuda")
+        torch.addmm(torch.zeros(8, 8, device="cuda"), a, a,
+                    out_dtype=torch.float32, alpha=-1)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (lambda R, A, B: R - torch.mm(A, B, out_dtype=torch.float32),
+                "R - torch.mm(out_dtype=float32), two calls")
+    return (lambda R, A, B: torch.addmm(R, A, B, out_dtype=torch.float32,
+                                        alpha=-1),
+            "addmm(out_dtype=float32)")
+
+
 def _k2_bad(got, ref, tol, mode):
     """Elements of a K2 result off its plain version: the fp32 summation
     tolerance, plus one bf16 ulp where the result is bf16."""
@@ -354,6 +447,114 @@ def ab_k2(libs, quick):
                       f"A@B; package splits {splits}), plain {t_p:.3f} ms")
             del ref
         del A, B, R32
+        torch.cuda.empty_cache()
+
+
+# chip_smoke.K2_BF16_SHAPES (tag, m, k, n, B transposed)
+K2_BF16_SHAPES = (("crout panel k=1536", N - V, V, V, False),
+                  ("crout panel k=32256", N % V, N - N % V, N % V, False),
+                  ("Cholesky k=1536", N - V, V, V, True),
+                  ("Cholesky k=32256", N % V, N - N % V, N % V, True))
+
+
+def _bf16_turns(fns, R, A, B, mode, tag, library):
+    """Each build's entry, the library call and the plain version in turns
+    (builds, library, plain, plain, library, builds reversed): every
+    result checked against the plain version, each build's repeated call
+    bit for bit; returns {name: lesser of its two ms}."""
+    from conflux_tpu_torch.ops.gemm import _sub_matmul_bigk_t
+
+    ref = _sub_matmul_bigk_t(R, A, B, mode)
+    tol = 1e-5 * float(torch.mm(A.float().abs(), B.float().abs()).max())
+    for nm, fn in fns.items():
+        got = fn(R, A, B, mode)
+        bad = _k2_bad(got, ref, tol, mode)
+        if bad or not torch.equal(got, fn(R, A, B, mode)):
+            raise SystemExit(f"K2 bf16 {nm} {tag} {mode}: {bad} elements off "
+                             "the plain version, or a repeat differs")
+        del got
+    lib_fn = lambda R, A, B, mode: library(R, A, B)   # noqa: E731
+    bad = _k2_bad(lib_fn(R, A, B, mode), ref, tol, mode)
+    if bad:
+        print(f"  (library call off the plain version at {bad} elements)")
+    del ref
+    order = [*fns, "library", "plain"]
+    calls = {**fns, "library": lib_fn, "plain": _sub_matmul_bigk_t}
+    times = {nm: [] for nm in order}
+    for nm in order + order[::-1]:
+        times[nm].append(per_call_ms(calls[nm], R, A, B, mode))
+    return {nm: min(t) for nm, t in times.items()}
+
+
+def ab_k2bf16(libs, quick, steps=False):
+    names = [n for n in libs if "bigk_gemm" in libs[n]]
+    fns = {n: bigk_bf16_fn(libs[n]["bigk_gemm"]) for n in names}
+    for nm in names:
+        lib = libs[nm]["bigk_gemm"]
+        if hasattr(lib, "conflux_sub_matmul_bigk_bf16_clusters"):
+            print(f"K2 bf16 {nm}: "
+                  f"{lib.conflux_sub_matmul_bigk_bf16_clusters()} ping-pong "
+                  "clusters at once")
+    shapes = K2_BF16_SHAPES[:1] if quick else K2_BF16_SHAPES
+    for si, (tag, m, k, n, bt) in enumerate(shapes):
+        g = torch.Generator(device="cuda").manual_seed(950 + si)
+        A = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        B = (torch.randn(n, k, generator=g, device="cuda")
+             .to(torch.bfloat16).T if bt else
+             torch.randn(k, n, generator=g, device="cuda")
+             .to(torch.bfloat16))
+        R32 = torch.randn(m, n, generator=g, device="cuda")
+        for mode in ("bf16", "bf16out"):
+            R = R32.to(torch.bfloat16) if mode == "bf16out" else R32
+            library, label = library_sub_bf16(mode)
+            t = _bf16_turns(fns, R, A, B, mode, tag, library)
+            bytes_ = (2.0 * R.element_size() * m * n + 2.0 * (m * k + k * n))
+            bound = max(2.0 * m * n * k / 989e12, bytes_ / 3.35e12) * 1e3
+            routes = {nm: fns[nm].route for nm in names}
+            print(f"K2 bf16 {tag} R [{m}, {n}] k {k} {mode:7s}: " + ", ".join(
+                f"{nm} {t[nm]:.4f} ms (route {routes[nm]})" for nm in names)
+                + f", {label} {t['library']:.4f} ms, plain {t['plain']:.4f} "
+                f"ms, bound {bound:.4f} ms")
+        del A, B, R32, R
+        torch.cuda.empty_cache()
+    if steps:
+        bf16_steps(fns)
+
+
+def bf16_steps(fns):
+    """The bf16 entry of each build against addmm and the plain version
+    at each big-K product of one N, V bf16 crout and one bf16 Cholesky,
+    in 'bf16' (f32 R, bf16 operands as views of [N, N] bf16 buffers)."""
+    g = torch.Generator(device="cuda").manual_seed(42)
+    Rb = torch.randn(N, N, generator=g, device="cuda").to(torch.bfloat16)
+    Fb = torch.randn(N, N, generator=g, device="cuda").to(torch.bfloat16)
+    Gb = torch.randn(N, N, generator=g, device="cuda").to(torch.bfloat16)
+    buf = torch.randn(N * V, generator=g, device="cuda")
+    library, label = library_sub_bf16("bf16")
+    crout, chol = [], []
+    for k in range(V, N, V):
+        w = min(V, N - k)
+        m_r = N - k
+        crout.append((f"panel k={k}", buf[:m_r * w].view(m_r, w),
+                      Rb[:m_r, :k], Fb[:k, k:k + w]))
+        if k + w < N:
+            crout.append((f"refresh k={k}", buf[:w * (N - k - w)]
+                          .view(w, N - k - w), Rb[:w, :k], Fb[:k, k + w:]))
+        chol.append((f"panel k={k}", buf[:m_r * w].view(m_r, w), Fb[k:, :k],
+                     Gb[k:k + w, :k].T))
+    for path, calls in (("crout", crout), ("Cholesky", chol)):
+        sums = {}
+        for tag, R, A, B in calls:
+            t = _bf16_turns(fns, R, A, B, "bf16", tag, library)
+            for nm, ms in t.items():
+                sums[nm] = sums.get(nm, 0.0) + ms
+            print(f"bf16 {path} {tag} [{A.shape[0]} x {B.shape[1]}, k "
+                  f"{A.shape[1]}]: " + ", ".join(f"{nm} {ms:.4f}"
+                                                 for nm, ms in t.items())
+                  + " ms")
+        print(f"bf16 {path} over the factorization's {len(calls)} big-K "
+              f"products ({label} as library): " + ", ".join(
+                  f"{nm} {ms:.3f}" for nm, ms in sums.items()) + " ms")
         torch.cuda.empty_cache()
 
 
@@ -716,6 +917,10 @@ def host_overhead():
              "gather_rows": (cuda_scatter.gather_rows, (R, idx)),
              "index_select": (torch.index_select, (R, 0, idx)),
              "matmul bf16": (cuda_gemm.matmul, (a, a)),
+             "sub_matmul_bigk_bf16": (cuda_gemm.sub_matmul_bigk_bf16,
+                                      (R, a, a, "bf16")),
+             "sub_matmul_bigk_bf16 B^T": (cuda_gemm.sub_matmul_bigk_bf16,
+                                          (R, a, a.T, "bf16")),
              "torch.mm bf16": (lambda x, y: torch.mm(
                  x, y, out_dtype=torch.float32), (a, a))}
     for name, (fn, args) in cases.items():
@@ -738,11 +943,14 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="fewer shapes of each kernel")
     ap.add_argument("--only", action="append",
-                    choices=("k1", "k1f64", "k2", "k3", "k4", "rows"),
+                    choices=("k1", "k1f64", "k2", "k2bf16", "k3", "k4",
+                             "rows"),
                     help="run only these kernels' A/B (repeatable)")
     ap.add_argument("--steps", action="store_true",
                     help="K2 against its plain version at the step shapes "
-                    "of a crout and a Cholesky factorization")
+                    "of a crout and a Cholesky factorization (with --only "
+                    "k2bf16 alone: the bf16 entry at the bf16 paths' step "
+                    "shapes)")
     ap.add_argument("--unchecked", action="store_true",
                     help="K1, K1 in double, K3: time builds that disagree with the plain "
                     "version (variants that leave out work, to attribute "
@@ -758,7 +966,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}")
-    only = set(args.only or ("k1", "k1f64", "k2", "k3", "k4", "rows"))
+    only = set(args.only or ("k1", "k1f64", "k2", "k2bf16", "k3", "k4",
+                             "rows"))
     if "k1" in only:
         ab_k1(libs, args.quick, args.unchecked)
     if "k1f64" in only:
@@ -768,7 +977,9 @@ def main():
     for key, fn in (("k2", ab_k2), ("k4", ab_k4), ("rows", ab_rows)):
         if key in only:
             fn(libs, args.quick)
-    if args.steps:
+    if "k2bf16" in only:
+        ab_k2bf16(libs, args.quick, args.steps)
+    if args.steps and only != {"k2bf16"}:
         path_steps()
 
 

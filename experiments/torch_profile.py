@@ -37,6 +37,11 @@ GROUPS = (
     ("K3 schur_update_wgmma_kernel", ("schur_update_wgmma_kernel",)),
     ("K2 sub_matmul_bigk (+ split-K sum)", ("sub_matmul_bigk_kernel",
                                             "bigk_reduce_kernel")),
+    # K2's bf16-operand entry (wgmma_bf16.cuh): its ping-pong and
+    # cooperative routes; ahead of the cuBLAS group, whose keys match
+    # "bf16"
+    ("K2 bf16 entry ping-pong", ("sub_matmul_bf16_kernel",)),
+    ("K2 bf16 entry cooperative", ("sub_matmul_bf16_coop_kernel",)),
     ("K5 scatter_rows_kernel", ("scatter_rows_kernel",)),
     ("K6 gather_rows_kernel", ("gather_rows_kernel",)),
     ("K5/K6 bulk_move_kernel (TMA bulk route)", ("bulk_move_kernel",)),

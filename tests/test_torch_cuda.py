@@ -865,12 +865,28 @@ def test_k1_f64_dispatch_never_reaches_the_plain_version(card, monkeypatch):
     assert M.dtype == torch.float64
 
 
-# K2's bf16-operand entry: (m, n, k) at a crout panel update, a split-K
-# shape, a ragged one, and operands TMA cannot read in place (an odd row
-# stride, a transposed view), which the wrapper copies first
+# K2's bf16-operand entry: (m, n, k) at a crout panel update, split-K
+# shapes (the bf16 crout's last panel update; a ragged one), a ragged
+# shape, an A TMA cannot read in place (an odd offset, copied first),
+# transposed B views read in place, K-major (a small one and the bf16
+# Cholesky's first panel update, B = F[k:k+w, :k].T), and a transposed B
+# whose row stride TMA cannot take (copied first, then read row-major)
 K2_BF16_CASES = [(2048, 1536, 1536, "plain"), (1536, 512, 30720, "plain"),
                  (1000, 300, 200, "plain"), (777, 300, 500, "odd"),
-                 (640, 256, 2500, "transposed")]
+                 (640, 256, 2500, "transposed"), (512, 512, 32256, "plain"),
+                 (700, 260, 5000, "plain"),
+                 (31232, 1536, 1536, "transposed"),
+                 (8192, 1536, 4096, "plain"), (8000, 1500, 2500, "transposed"),
+                 (6016, 1536, 4096, "plain"), (6000, 1500, 4000, "transposed"),
+                 (640, 256, 2500, "transposed odd")]
+# the route each of these takes on an H100 (132 SMs): ping-pong tiles for
+# short K, split-K where tiles are few, cooperative tiles for long K on
+# many tiles (ragged ones among them)
+K2_BF16_ROUTES = {(2048, 1536, 1536): "tiles", (512, 512, 32256): "split-k",
+                  (8192, 1536, 4096): "cooperative",
+                  (8000, 1500, 2500): "cooperative",
+                  (6016, 1536, 4096): "cooperative",
+                  (6000, 1500, 4000): "cooperative"}
 
 
 @pytest.mark.parametrize("mode", ["bf16", "bf16out"])
@@ -882,8 +898,14 @@ def test_k2_bf16_entry_matches_plain_on_card(card, m, n, k, layout, mode):
             torch.bfloat16)[:, 3:]
     else:
         A = torch.randn(m, k, generator=g, device=card).to(torch.bfloat16)
-    if layout == "transposed":
+    if layout == "transposed odd":
         B = torch.randn(n, k, generator=g, device=card).to(torch.bfloat16).T
+    elif layout == "transposed":
+        # the Cholesky's B: rows of a wider buffer (a row stride TMA
+        # takes), viewed transposed
+        ld = (k + 7) // 8 * 8 + 64
+        B = torch.randn(n, ld, generator=g, device=card).to(
+            torch.bfloat16)[:, 64:64 + k].T
     else:
         B = torch.randn(k, n, generator=g, device=card).to(torch.bfloat16)
     R = torch.randn(m, n, generator=g, device=card)
@@ -892,12 +914,31 @@ def test_k2_bf16_entry_matches_plain_on_card(card, m, n, k, layout, mode):
     R0 = R.clone()
     ref = _sub_matmul_bigk_t(R, A, B, mode)
     before = (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
-              cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES)
+              cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES,
+              cuda_gemm.SUB_MATMUL_BIGK_BF16_COPIES,
+              cuda_gemm.SUB_MATMUL_BIGK_BF16_SPLITK_LAUNCHES)
     got = cuda_gemm.sub_matmul_bigk_bf16(R, A, B, mode)
     torch.cuda.synchronize()
+    last = dict(cuda_gemm.BF16_LAST)
     assert (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
             cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES) == (before[0],
                                                          before[1] + 1)
+    # a transposed B is read in place, K-major; copied first are only the
+    # operands TMA cannot read: the odd A, and rows whose stride is not a
+    # multiple of 16 bytes (A's k, a row-major B's n, a transposed B's k)
+    assert last["b_layout"] == ("k-major" if layout == "transposed"
+                                else "mn-major")
+    b_copied = (k % 8 != 0 if layout == "transposed odd"
+                else layout != "transposed" and n % 8 != 0)
+    assert last["copied"] == ((("A",) if layout == "odd" or k % 8 else ())
+                              + (("B",) if b_copied else ()))
+    assert (cuda_gemm.SUB_MATMUL_BIGK_BF16_COPIES - before[2]
+            == len(last["copied"]))
+    splits = cuda_gemm.sub_matmul_bigk_bf16_splits(m, n, k)
+    assert last["route"] == K2_BF16_ROUTES.get((m, n, k), last["route"])
+    assert (last["route"] == "split-k") == (splits > 1)
+    assert (cuda_gemm.SUB_MATMUL_BIGK_BF16_SPLITK_LAUNCHES - before[3]
+            == int(splits > 1))
     assert torch.equal(R, R0) and got.dtype == R.dtype
     # the same bf16 operand values: fp32 summation order only (plus one
     # bf16 ulp of the result where R is bf16)

@@ -164,6 +164,36 @@ def test_cholesky_bf16_matches_jax(scheme):
     assert blocked == pytest.approx(rt, rel=1e-2)
 
 
+def test_cholesky_bf16_panel_update_runs_through_k2(monkeypatch):
+    """The bf16 Cholesky's panel updates go through ops/gemm's
+    sub_matmul_bigk (K2's bf16-operand entry on the card), one a step with
+    k > 0, each on bf16 operands with B the transposed view
+    F[k:k+w, :k].T; on the CPU the factor equals the library expression
+    it replaced, col - schur_dot(L21, L1t, 'bf16'), bit for bit."""
+    import conflux_tpu_torch.cholesky.single as csingle
+    from conflux_tpu_torch.ops.tri import schur_dot
+
+    S = _spd(N1, 5)
+    _, St = _bf16_pair(S)
+    calls = []
+    real = csingle.sub_matmul_bigk
+
+    def counted(R, A, B, mode):
+        calls.append((A.dtype, B.dtype, B.stride(0), mode))
+        return real(R, A, B, mode)
+
+    monkeypatch.setattr(csingle, "sub_matmul_bigk", counted)
+    L = cholesky(St, V1)
+    steps = -(-N1 // V1)
+    assert calls == [(BF16, BF16, 1, "bf16")] * (steps - 1)
+
+    def library(R, A, B, mode):
+        return R - schur_dot(A, B, mode)
+
+    monkeypatch.setattr(csingle, "sub_matmul_bigk", library)
+    assert torch.equal(cholesky(St, V1), L)
+
+
 # ------------------------------------------------------------ distributed
 
 def _cases():

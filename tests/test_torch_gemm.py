@@ -259,6 +259,69 @@ def test_sub_matmul_bigk_rejects_what_the_kernel_does_not_take():
     assert cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES == before
 
 
+# the bf16 Cholesky's panel update col - L21 @ L1t on bf16 storage's
+# operands (m, k, w): a step of N = 160, v = 48 and ragged shapes; L1t is
+# the transposed view F[k:k+w, :k].T, L21 = F[k:, :k], col an f32 upcast
+BF16_PANELS = [(112, 48, 48), (37, 61, 29), (3, 5, 3), (70, 1, 33)]
+
+
+@pytest.mark.parametrize("m,k,w", BF16_PANELS)
+def test_sub_matmul_bigk_plain_is_the_bf16_cholesky_update(m, k, w):
+    """On CPU tensors sub_matmul_bigk is R - schur_dot(A, B, 'bf16') bit
+    for bit, also on bf16 operands with B a transposed view: routing the
+    bf16 Cholesky's panel update through it moves no CPU result."""
+    rng = np.random.default_rng(m * 7 + k)
+    F = torch.from_numpy(rng.standard_normal((k + max(m, w), k + w))
+                         .astype(np.float32)).to(torch.bfloat16)
+    L21, L1t = F[k:k + m, :k], F[k:k + w, :k].T
+    assert L1t.stride(0) == 1 and L1t.shape == (k, w)
+    col = F[k:k + m, k:k + w].to(torch.float32)
+    want = col - schur_dot(L21, L1t, "bf16")
+    got = tgemm.sub_matmul_bigk(col, L21, L1t, "bf16")
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(tgemm._sub_matmul_bigk_t(col, L21, L1t, "bf16"), want)
+
+
+@pytest.mark.parametrize("case", ["mode", "high", "A dtype", "B dtype",
+                                  "R dtype", "A shape", "B shape", "R dim"])
+def test_sub_matmul_bigk_bf16_checks_before_any_launch(case):
+    """The bf16 entry's argument checks raise on CPU tensors, ahead of its
+    device checks and of any library load or launch."""
+    bf = torch.bfloat16
+    R, A, B = torch.zeros(8, 6), torch.zeros(8, 4, dtype=bf), \
+        torch.zeros(4, 6, dtype=bf)
+    mode = "bf16"
+    want = ValueError
+    if case == "mode":
+        mode = "bf16x"
+    elif case == "high":
+        mode = "high"
+    elif case == "A dtype":
+        A, want = A.float(), TypeError
+    elif case == "B dtype":
+        B, want = B.half(), TypeError
+    elif case == "R dtype":
+        R, want = R.to(bf), TypeError        # 'bf16' takes a float32 R
+    elif case == "A shape":
+        A = torch.zeros(7, 4, dtype=bf)
+    elif case == "B shape":
+        B = torch.zeros(5, 6, dtype=bf)
+    else:
+        R = torch.zeros(8, 6, 1)
+    before = (cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES, cuda_gemm._bigk_lib)
+    with pytest.raises(want):
+        cuda_gemm.sub_matmul_bigk_bf16(R, A, B, mode)
+    with pytest.raises(want):
+        cuda_gemm.check_bf16_operands(R, A, B, mode)
+    assert (cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES,
+            cuda_gemm._bigk_lib) == before
+    # well-formed CPU operands are refused for their device, still unlaunched
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_gemm.sub_matmul_bigk_bf16(torch.zeros(8, 6), torch.zeros(
+            8, 4, dtype=bf), torch.zeros(4, 6, dtype=bf), "bf16")
+    assert cuda_gemm.SUB_MATMUL_BIGK_BF16_LAUNCHES == before[0]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_matmul_matches_pallas_interpret(monkeypatch, dtype):
     rng = np.random.default_rng(11)
