@@ -20,7 +20,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      flat and Cholesky paths' [128, 1536] and [64, 1536] tile blocks with
      first pivots j0 > 0 (the tile route), and at the cluster route's
      widest block and 128 lanes more (the grid route) at w = 128 and 64
-     in all three modes (forced ones on the tile route); every call
+     in all three modes (forced ones on the tile route), and unforced at
+     the recursive scheme's widest [64, 32768] block; every call
      checked against the route counter it must move; then K1 in double
      against the same plain version in f64 and cuSOLVER's f64 LU at the
      f64 crout path's [128, 32768] finish block and a [128, 17408] block
@@ -65,9 +66,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      (through the legacy knobs, then through `fp32_precision`), crout,
      flat, Cholesky and both solves at 'highest' give the same bits as
      with the defaults, and the caller's knobs read back as set;
-  9. crout main path: lu_factor(A, v=1536, precision='high') at N=32768
-     f32 (one warm-up, then timed runs), every kernel's launches per
-     factorization, peak device memory, and the blocked residual;
+  9. crout main path: lu_factor(A, v=1536, precision='high',
+     scheme='crout') at N=32768 f32 (one warm-up, then timed runs), every
+     kernel's launches per factorization, peak device memory, and the
+     blocked residual; then the same with scheme='recursive' (its K1
+     blocks held to its recursion, `rec_leaves`: 64-wide blocks of each
+     leaf and of its pivot rows, no other kernel); then 'auto':
+     lu_factor(A, v=1536, precision='high') with no scheme at N=32768,
+     and at a smaller N on the other side of `auto_scheme`'s threshold
+     where that lies within N, each launching exactly the kernels of the
+     path auto_scheme names;
  10. flat path: the same with scheme='flat';
  11. Cholesky path: cholesky(A, v=1536, precision='high') at N=32768;
  12. swap and split paths: crout with compaction='swap' and 'split';
@@ -121,7 +129,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (`_stepped_want`), gated by the streaming blocked gates on the card;
  16. cli (last): the front ends through their main(), as a user runs
      them: conflux_miniapp on the main path (-p 1x1x1, in this process,
-     'high'; its launches held to three crout factorizations) and on a
+     'high'; its launches held to three factorizations of the scheme
+     auto_scheme names for the padded N) and on a
      (2, 2, 2) grid of 8 ranks it starts itself, cholesky_miniapp on
      (2, 2, 2), a profiled LU at N = 4096, the Cholesky helper's files
      with the port's float64 cholesky, and the sweep of
@@ -163,6 +172,17 @@ N, V = 32768, 1536
 REPS = 3
 
 
+def rec_leaves(m: int, n: int, v: int, k: int = 0):
+    """(k, m, w) of every leaf of `lu.single._getrf_rec` on an [m, n]
+    block whose first column is column k: its split n1 = max(v,
+    (n // 2 // v) * v), the left [m, n1] half, then the [m - n1, n - n1]
+    Schur complement."""
+    if n <= v:
+        return [(k, m, n)]
+    n1 = max(v, (n // 2 // v) * v)
+    return rec_leaves(m, n1, v, k) + rec_leaves(m - n1, n - n1, v, k + n1)
+
+
 def k1_blocks(path: str, n: int = N, v: int = V):
     """(w, m, forced) of every K1 block of one n, v factorization of
     `path`, from its step loop: step k factors a panel of w = min(v, n - k)
@@ -170,7 +190,15 @@ def k1_blocks(path: str, n: int = N, v: int = V):
     flat LU over all n rows: it never compacts); flat, swap and split
     (and the stepped flat) then refactor the w gathered pivot rows,
     forced, in [128, w] blocks; Cholesky factors each [w, w] diagonal
-    tile, forced, in [64, w] blocks."""
+    tile, forced, in [64, w] blocks. The recursive scheme, from its
+    recursion (`rec_leaves`): each [m, w] leaf selects its pivots in
+    64-wide blocks (`ops.panel._BLOCK`), then refactors its w pivot rows,
+    forced, in [64, w] blocks."""
+    if path == "recursive":
+        return [b for _, m, w in rec_leaves(n, n, v)
+                for b in ([(min(64, w - c), m, False) for c in range(0, w, 64)]
+                          + [(min(64, w - c), w, True)
+                             for c in range(0, w, 64)])]
     blocks = []
     for k in range(0, n, v):
         w = min(v, n - k)
@@ -218,8 +246,8 @@ KERNELS = ("rank1_panel", "schur_update", "sub_matmul_bigk", "matmul",
 # launches per factorization of each path; a kernel left out runs 0 times
 # (split and swap run each panel through factor_panel as flat does, and
 # the big-K products of crout)
-PATH_LAUNCHES = {p: loop_launches(p)
-                 for p in ("crout", "flat", "cholesky", "swap", "split")}
+PATH_LAUNCHES = {p: loop_launches(p) for p in ("crout", "recursive", "flat",
+                                               "cholesky", "swap", "split")}
 PATH_LAUNCHES["swap"].update(scatter_rows=K5_SWAP, gather_rows=K6_SWAP)
 PATH_LAUNCHES["split"]["gather_rows"] = K6_SPLIT
 # the dtype paths of the dtypes phase, each with the path whose K1 blocks
@@ -525,6 +553,9 @@ def phase_k1():
               for mode in ("unforced", "forced", "finish")]
     cases += [(w, m, mode, j0, 9000 + i)
               for i, (w, m, mode, j0) in enumerate(DIST_K1)]
+    # the recursive scheme's widest pivot search: its first leaf's [64, N]
+    # blocks (ops/panel.select_pivots, unforced)
+    cases.append((64, N, "unforced", 0, 9500))
     counters = ("LAUNCHES", "LAUNCHES_CLUSTER", "LAUNCHES_GRID",
                 "LAUNCHES_TILE")
     rows = []
@@ -1476,13 +1507,13 @@ def _expect(per_run, want: dict, tag: str):
 
 
 def phase_lu_path(smi: str, path: str):
-    """One LU path: 'crout' and 'flat' by scheme, 'swap' and 'split' as
-    crout's compactions."""
+    """One LU path: 'crout', 'recursive' and 'flat' by scheme, 'swap' and
+    'split' as crout's compactions."""
     import torch
 
     from conflux_tpu_torch.lu.single import lu_factor
 
-    scheme = "flat" if path == "flat" else "crout"
+    scheme = path if path in ("recursive", "flat") else "crout"
     compaction = path if path in ("swap", "split") else "gather"
     g = torch.Generator(device="cuda").manual_seed(42)
     A = 5.0 + torch.rand(N, N, generator=g, device="cuda")
@@ -1500,9 +1531,47 @@ def phase_lu_path(smi: str, path: str):
     print(f"{path} path N={N} v={V} 'high' on {smi}: times ms "
           f"{[round(t, 3) for t in times]}, median {med:.3f} ms, "
           f"{2.0 / 3.0 * N ** 3 / (med * 1e-3) / 1e9:.1f} GFLOP/s, "
-          f"peak memory {peak / 2 ** 30:.3f} GiB, launches per "
+          f"peak memory {peak / 2 ** 30:.3f} GiB = "
+          f"{peak / A.nbytes:.3f} copies of A, launches per "
           f"factorization {per_run[-1]}, lu_residual_blocked {res:.3e}")
     return counts
+
+
+def phase_auto(smi: str):
+    """lu_factor(A, V, 'high') with no scheme on the main paths' input at
+    N, and, where N is at or past auto_scheme's threshold, at one row
+    below the threshold (the other side; ragged leaves when the threshold
+    is not a multiple of V): each run's launches must be exactly those of
+    the path `auto_scheme` names for its N, and its blocked residual
+    within the gate. Returns the launches."""
+    import torch
+
+    from conflux_tpu_torch.lu.single import CROUT_FROM_M, auto_scheme, \
+        lu_factor
+    from conflux_tpu_torch.timing import timed_run
+
+    sizes = [N] + ([CROUT_FROM_M - 1] if 1 < CROUT_FROM_M <= N else [])
+    total = {}
+    for n in sizes:
+        g = torch.Generator(device="cuda").manual_seed(42)
+        A = 5.0 + torch.rand(n, n, generator=g, device="cuda")
+        path = auto_scheme(n)
+        lu_factor(A, V, "high")                      # warm-up at this n
+        torch.cuda.synchronize()
+        _reset_counts()
+        ms, (F, perm) = timed_run(lambda: lu_factor(A, V, "high"))
+        counts = _counts()
+        _expect([counts], _loop_want(path, n, V), f"auto N={n}")
+        res = _check_factor(A, F, perm, f"auto N={n} high")
+        print(f"auto N={n} v={V} 'high' on {smi}: auto_scheme({n}) = "
+              f"{path!r} (crout from {CROUT_FROM_M} rows), {ms:.3f} ms, "
+              f"launches {counts['rank1_panel']} K1, "
+              f"{counts['sub_matmul_bigk']} K2, {counts['schur_update']} "
+              f"K3 as derived for {path}, lu_residual_blocked {res:.3e}")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+        del A, F, perm
+    return total
 
 
 def phase_cholesky_path(smi: str):
@@ -1579,7 +1648,7 @@ def phase_dtypes(smi: str):
         "bf16 crout": lambda a: lu_factor(a, V, "high"),
         "bf16 flat": lambda a: lu_factor(a, V, "high", scheme="flat"),
         "bf16 cholesky": lambda a: cholesky(a, V, "high"),
-        "f64 crout": lambda a: lu_factor(a, V, "high"),
+        "f64 crout": lambda a: lu_factor(a, V, "high", scheme="crout"),
         "f64 cholesky": lambda a: cholesky(a, V, "high"),
         "c64 clu": lambda a: clu_factor(a, V),
     }
@@ -1966,7 +2035,7 @@ def _dist_rank(n: int, v: int, check):
     A2 = torch.randn(n2, n2, generator=g, device="cuda")
     F2, p2 = plu(A2, grid, v2, "full", "highest")
     if grid.rank == 0:
-        Fs, ps = lu_factor(A2, v=v2, precision="highest")
+        Fs, ps = lu_factor(A2, v=v2, precision="highest", scheme="crout")
         out["full"] = {
             "equal": torch.equal(p2, ps),
             "agree": float((p2 == ps).double().mean()),
@@ -2292,7 +2361,7 @@ def phase_stepped(smi: str):
 # the sweep of configs/params_example.ini with its csv in a temporary
 # directory
 # (app, flags, main path): the main path's run, in this process, has its
-# launches held to the crout step loop
+# launches held to those of the scheme auto_scheme names for its padded N
 CLI_RUNS = (
     ("conflux_miniapp", "-N 32768 -b 1536 -p 1x1x1 -r 2 --validate "
                         "--precision high", True),
@@ -2330,7 +2399,7 @@ def phase_cli(smi: str):
     """CLI_RUNS through each miniapp's main(); every `_result_` line's
     fields checked (algorithm, library, N, N_base, P, grid, unit, type,
     value, v), every time > 0, one time line per repetition, the residual
-    <= 1e-6; the in-process main-path run's launches held to 3 crout
+    <= 1e-6; the in-process main-path run's launches held to 3
     factorizations (warm-up and two repetitions). Then the Cholesky
     helper and the sweep. Returns that run's launches."""
     import configparser
@@ -2344,6 +2413,7 @@ def phase_cli(smi: str):
     from conflux_tpu_torch.cli import cholesky_helper, cholesky_miniapp, \
         conflux_miniapp, sweep
     from conflux_tpu_torch.io import load_matrix, save_matrix
+    from conflux_tpu_torch.lu.single import auto_scheme
 
     mains = {"conflux_miniapp": conflux_miniapp.main,
              "cholesky_miniapp": cholesky_miniapp.main}
@@ -2383,19 +2453,21 @@ def phase_cli(smi: str):
             fail(f"cli {tag}: no profiled region table")
         note = ""
         if main_path:
-            # lu_25d on (1, 1, 1) runs the crout main path on the matrix
-            # padded to a multiple of v (layout.BlockCyclic.create)
+            # lu_25d on (1, 1, 1) runs the scheme auto_scheme names for
+            # the matrix padded to a multiple of v
+            # (layout.BlockCyclic.create)
             vi = int(v)
             npad = -(-n // vi) * vi
-            want = {k: 3 * c for k, c in _loop_want("crout", npad,
+            path = auto_scheme(npad)
+            want = {k: 3 * c for k, c in _loop_want(path, npad,
                                                      vi).items()}
             _expect([counts], want, f"cli {tag}")
             out["cli conflux_miniapp 1x1x1"] = counts
             note = (f", launches of its 3 factorizations (warm-up and 2 "
                     f"repetitions, N padded to {npad}) K1 "
                     f"{counts['rank1_panel']}, K2 "
-                    f"{counts['sub_matmul_bigk']} as derived from the "
-                    "crout step loop")
+                    f"{counts['sub_matmul_bigk']} as derived for "
+                    f"auto_scheme({npad}) = {path!r}")
         print(f"cli {tag} on {smi}: rc 0, times ms {times}, residual "
               f"{res}, {wall:.1f} s of wall in all{note}")
 
@@ -2502,6 +2574,9 @@ def main() -> int:
     print(f"phase build and kernels: {time.perf_counter() - T0:.1f} s of "
           "wall")
     by_path = {"crout": _walled("crout", phase_lu_path, smi, "crout"),
+               "recursive": _walled("recursive", phase_lu_path, smi,
+                                    "recursive"),
+               "auto": _walled("auto", phase_auto, smi),
                "flat": _walled("flat", phase_lu_path, smi, "flat"),
                "cholesky": _walled("cholesky", phase_cholesky_path, smi),
                "swap": _walled("swap", phase_lu_path, smi, "swap"),

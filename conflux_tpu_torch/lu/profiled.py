@@ -42,7 +42,7 @@ def lu_25d_profiled(G: torch.Tensor, desc: BlockCyclic,
     """`lu_25d(G, desc, pivoting, precision, unroll=False)` substep by
     substep, each substep a fenced region of the profiler (module
     docstring); the same (F, pivots), (None, None) on an idle rank. (On
-    a (1, 1, 1) grid `lu_25d` runs the single-device `_getrf_crout` instead; this
+    a (1, 1, 1) grid `lu_25d` runs a single-device scheme instead; this
     runs the rank program there too.) Call
     under profiler.enable(True) and print the table with profiler.PP().
     Every rank of the grid must call it."""

@@ -188,13 +188,35 @@ def test_crout_on_card_meets_gate(card, precision):
     g = torch.Generator(device=card).manual_seed(3)
     A = torch.randn(n, n, generator=g, device=card)
     before = (cuda_panel.LAUNCHES, cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES)
-    F, perm = lu_factor(A, v=v, precision=precision)
+    F, perm = lu_factor(A, v=v, precision=precision, scheme="crout")
     assert cuda_panel.LAUNCHES - before[0] == (n // v) * (v // 128)
     assert cuda_gemm.SUB_MATMUL_BIGK_WGMMA_LAUNCHES - before[1] == (
         2 * (n // v) - 3 if precision == "high" else 0)
     assert F.is_cuda and bool(torch.isfinite(F).all())
     assert torch.equal(torch.sort(perm).values, torch.arange(n, device=card))
     assert lu_residual_blocked(A, F, perm) <= 1e-6
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_recursive_on_card_runs_k1_alone(card, precision):
+    # every leaf selects its pivots in 64-wide K1 blocks and refactors its
+    # pivot rows in forced ones; the Schur products are library calls, so
+    # K2 and K3 never run; 'auto' below the threshold is this scheme
+    from conflux_tpu_torch.lu.single import auto_scheme
+
+    n, v = 1024, 256
+    g = torch.Generator(device=card).manual_seed(8)
+    A = torch.randn(n, n, generator=g, device=card)
+    before = (cuda_panel.LAUNCHES, cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
+              cuda_gemm.SCHUR_UPDATE_LAUNCHES)
+    F, perm = lu_factor(A, v=v, precision=precision, scheme="recursive")
+    assert cuda_panel.LAUNCHES - before[0] == 2 * (n // v) * (v // 64)
+    assert (cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
+            cuda_gemm.SCHUR_UPDATE_LAUNCHES) == before[1:]
+    assert lu_residual_blocked(A, F, perm) <= 1e-6
+    assert auto_scheme(n) == "recursive"
+    Fa, pa = lu_factor(A, v=v, precision=precision)
+    assert torch.equal(pa, perm) and torch.equal(Fa, F)
 
 
 def _bf16_ulp(x):
@@ -494,7 +516,8 @@ def test_crout_compactions_on_card_meet_gate(card, compaction, precision):
     before = (cuda_panel.LAUNCHES, cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
               cuda_scatter.SCATTER_ROWS_LAUNCHES,
               cuda_scatter.GATHER_ROWS_LAUNCHES)
-    F, perm = lu_factor(A, v=v, precision=precision, compaction=compaction)
+    F, perm = lu_factor(A, v=v, precision=precision, scheme="crout",
+                        compaction=compaction)
     torch.cuda.synchronize()
     k1, k2, k5, k6 = (a - b for a, b in zip(
         (cuda_panel.LAUNCHES, cuda_gemm.SUB_MATMUL_BIGK_LAUNCHES,
@@ -1020,7 +1043,7 @@ def test_stepped_crout_is_the_crout_lu_on_card(card):
     from conflux_tpu_torch.lu.stepped import lu_factor_stepped
 
     A = _stepped_input(card, seed=7)
-    F0, p0 = lu_factor(A, v=STEPPED_V, precision="high")
+    F0, p0 = lu_factor(A, v=STEPPED_V, precision="high", scheme="crout")
     F1, p1 = lu_factor_stepped(A.clone(), v=STEPPED_V, precision="high",
                                scheme="crout", out="device")
     assert torch.equal(p0, p1) and torch.equal(F0, F1)

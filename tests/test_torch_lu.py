@@ -87,7 +87,7 @@ def test_lu_factor_leaves_input_unchanged(rng, partition):
     # never that buffer
     A = torch.from_numpy(rng.standard_normal((96, 96)).astype(np.float32))
     A0 = A.clone()
-    tsingle.lu_factor(A, v=32, partition=partition)
+    tsingle.lu_factor(A, v=32, scheme="crout", partition=partition)
     assert torch.equal(A, A0)
 
 
@@ -233,9 +233,9 @@ def test_crout_split_equals_gather(rng, m, n, v, precision):
     # CPU BLAS may or may not sum alike
     A = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
     Fs, ps = tsingle.lu_factor(A, v=v, precision=precision,
-                               compaction="split")
+                               scheme="crout", compaction="split")
     Fg, pg = tsingle.lu_factor(A, v=v, precision=precision,
-                               compaction="gather")
+                               scheme="crout", compaction="gather")
     assert torch.equal(ps, pg)
     if not torch.equal(Fs, Fg):
         print(f"split and gather differ by "
@@ -248,8 +248,8 @@ def test_crout_split_equals_gather(rng, m, n, v, precision):
 def test_crout_swap_single_panel_equals_gather(rng, m, n):
     # v == n: one panel and no push-up, so 'swap' is 'gather' exactly
     A = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
-    Fs, ps = tsingle.lu_factor(A, v=n, compaction="swap")
-    Fg, pg = tsingle.lu_factor(A, v=n, compaction="gather")
+    Fs, ps = tsingle.lu_factor(A, v=n, scheme="crout", compaction="swap")
+    Fg, pg = tsingle.lu_factor(A, v=n, scheme="crout", compaction="gather")
     assert torch.equal(ps, pg) and torch.equal(Fs, Fg)
 
 
@@ -273,12 +273,13 @@ def test_crout_gather_runs_its_big_k_products_through_k2(rng, monkeypatch,
         return inner(*args)
 
     monkeypatch.setattr(tgemm, "sub_matmul_bigk", spy)
-    F, perm = tsingle.lu_factor(A, v=v, precision=precision)
+    F, perm = tsingle.lu_factor(A, v=v, precision=precision, scheme="crout")
     steps = -(-n // v)
     assert calls == ([precision] * (2 * (steps - 1) - 1) if routed else [])
     monkeypatch.setattr(tsingle, "sub_dot",
                         lambda R, X, Y, p: R - tsingle.schur_dot(X, Y, p))
-    F0, perm0 = tsingle.lu_factor(A, v=v, precision=precision)
+    F0, perm0 = tsingle.lu_factor(A, v=v, precision=precision,
+                                  scheme="crout")
     assert torch.equal(F, F0) and torch.equal(perm, perm0)
 
 
@@ -288,7 +289,8 @@ def test_compactions_leave_input_unchanged(rng, compaction):
     # its raw matrix, the caller's A itself
     A = torch.from_numpy(rng.standard_normal((160, 96)).astype(np.float32))
     A0 = A.clone()
-    F, perm = tsingle.lu_factor(A, v=32, compaction=compaction)
+    F, perm = tsingle.lu_factor(A, v=32, scheme="crout",
+                                compaction=compaction)
     assert torch.equal(A, A0)
     assert validation.lu_residual_dense(A0, F, perm) <= GATE
 

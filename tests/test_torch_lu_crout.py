@@ -190,7 +190,8 @@ def test_crout_volumes_match_comm_model(world, i):
 
 def test_crout_one_rank_none_matches_jax(rng):
     # 'none' pivoting on a (1, 1, 1) grid runs the rank program itself
-    # (the other pivotings take the single-device `_getrf_crout`)
+    # (the other pivotings take the single-device scheme of
+    # `lu.single.auto_scheme`)
     A = (rng.standard_normal((48, 48)) + 48 * np.eye(48)).astype(np.float32)
     desc = BlockCyclic.create(48, 48, 8, make_grid((1, 1, 1), device="cpu"))
     F, perm = p25d.lu_25d(distribute(A, desc), desc, "none", "highest",

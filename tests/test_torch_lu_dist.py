@@ -153,7 +153,8 @@ def test_lu_25d_tall_tail_ascending(port):
 
 
 def test_lu_25d_one_rank_runs_single_device(rng):
-    # a (1, 1, 1) grid needs no process group and runs _getrf_crout
+    # a (1, 1, 1) grid needs no process group and runs the single-device
+    # scheme lu_factor's 'auto' picks
     from conflux_tpu_torch.grid import make_grid
     from conflux_tpu_torch.lu.p25d import plu
 

@@ -60,7 +60,7 @@ def _calls():
     b = torch.ones(N)
     return [
         ("lu_factor", lambda: tsingle.lu_factor(A, v=32),
-         (tsingle, "_getrf_crout")),
+         (tsingle, "_getrf_rec")),       # auto_scheme's pick at N
         ("lu", lambda: tsingle.lu(A, v=32), (tsingle, "_split_factors")),
         ("lu_residual", lambda: tsingle.lu_residual(A, F, perm),
          (tsingle, "_split_factors")),

@@ -11,7 +11,9 @@
     bit for bit, the port's factor of the same values as a bf16 tensor.
   * `lu_factor` and `cholesky` take tensors: a numpy array raises the
     coded INVALID_TYPE that names `interop.from_numpy`.
-  * every name a JAX package `__init__` exports, the port's exports too;
+  * every name a JAX package `__init__` exports, the port's exports too,
+    and every public function of `conflux_tpu.lu.single` (`auto_scheme`
+    among them), the port's module too;
     `cholesky.p25d.choose_unroll` answers as the JAX shim does; the
     `ops.inv_*` wrappers pass the JAX checks of
     tests/test_single_device.py (the same matrices, atol 1e-3).
@@ -127,6 +129,18 @@ def test_exports_include_the_jax_packages(pkg):
     # every exported name resolves (the top level through its lazy hook)
     for name in tmod.__all__:
         assert getattr(tmod, name) is not None, name
+
+
+@pytest.mark.parametrize("module", ["lu.single"])
+def test_module_functions_include_the_jax_modules(module):
+    jmod = importlib.import_module("conflux_tpu." + module)
+    tmod = importlib.import_module("conflux_tpu_torch." + module)
+    public = [name for name, obj in vars(jmod).items()
+              if callable(obj) and not name.startswith("_")
+              and getattr(obj, "__module__", None) == jmod.__name__]
+    missing = [name for name in public
+               if not callable(getattr(tmod, name, None))]
+    assert "auto_scheme" in public and not missing, missing
 
 
 @pytest.mark.parametrize("grid,n,v", [
