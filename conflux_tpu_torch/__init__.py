@@ -25,7 +25,8 @@ and moves it between descriptors (`retile`). `scalapack` has the
 ScaLAPACK-style entry points `pdgetrf` / `pdpotrf`; `pgemm` the SUMMA product
 (`pgemm.pgemm`) behind the distributed gates `validation.lu_residual_dist` /
 `cholesky_residual_dist`; `profiler` the semiprof-style region timers of
-the substep-profiled rank programs (`lu.profiled`, `cholesky.profiled`);
+the substep-profiled rank programs (`lu.profiled`, `cholesky.profiled`)
+and the phase spans of the single-card step loops (`profiler.span`);
 `spec` the serial numpy simulation and the comm models.
 
 `lu.stepped.lu_factor_stepped` and `cholesky.stepped.cholesky_stepped`

@@ -51,13 +51,13 @@ from conflux_tpu_torch.lu.single import check_dtype, compute_dtype
 from conflux_tpu_torch.ops.collect import panel_rows_for_columns
 from conflux_tpu_torch.ops.tri import potrf_tile, schur_dot, trsm_right_lower_t
 from conflux_tpu_torch.precision import ieee_fp32
-from conflux_tpu_torch.profiler import no_region
+from conflux_tpu_torch.profiler import span
 
 
 def _local_cholesky_25d_unrolled(desc: BlockCyclic, precision: str,
                                  G: torch.Tensor,
                                  lookahead: bool = False,
-                                 region=no_region) -> torch.Tensor:
+                                 region=span) -> torch.Tensor:
     """The right-looking rank program on this rank's block G (not
     modified); returns its block of the factor. Step k works on the live
     window [r0:, c0:] with r0 = (k // Px) v and c0 = (k // Py) v, the
@@ -69,7 +69,8 @@ def _local_cholesky_25d_unrolled(desc: BlockCyclic, precision: str,
     overlap, Cholesky.cpp:380-564). region(name) is entered around each
     substep (step0_reduce, step1_potrf, step2_trsm_write, step3_bcast,
     step4_update): the profiled program's fenced timers
-    (cholesky/profiled.py); a null context otherwise."""
+    (cholesky/profiled.py); `profiler.span` otherwise
+    (a null context unless profiled)."""
     g = desc.grid
     comm = g.comm
     v, Px, Py, Pz = desc.v, g.Px, g.Py, g.Pz

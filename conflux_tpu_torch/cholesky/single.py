@@ -27,6 +27,7 @@ from conflux_tpu_torch.lu.single import check_dtype, compute_dtype
 from conflux_tpu_torch.ops.gemm import sub_matmul_bigk
 from conflux_tpu_torch.ops.tri import potrf_tile, schur_dot, trsm_right_lower_t
 from conflux_tpu_torch.precision import ieee_fp32
+from conflux_tpu_torch.profiler import span
 
 
 def _potrf_flat(A: torch.Tensor, v: int,
@@ -42,30 +43,39 @@ def potrf_inplace(F: torch.Tensor, v: int,
                   precision: str = "highest") -> torch.Tensor:
     """The steps of `_potrf_flat` on F itself: its lower triangle becomes
     the factor, the strict upper triangle keeps stale values (the
-    caller's tril clears them). Returns F."""
+    caller's tril clears them). Returns F. The loop is the span
+    chol.factor, each step tiled by chol.update (the column's big-K
+    product), chol.panel (the tile's factor) and chol.solve (the TRSM and
+    the writes into F): `profiler.span`."""
     n = F.shape[0]
     bf16s = F.dtype == torch.bfloat16
-    for k in range(0, n, v):
-        w = min(v, n - k)
-        col = F[k:, k:k + w].to(compute_dtype(F.dtype))
-        if k > 0:
-            L21, L1t = F[k:, :k], F[k:k + w, :k].T
-            # K2 in 'high' and on bf16 storage's operands (its bf16
-            # entry beat the library's product and subtraction over the
-            # bf16 path's 21 steps on the H100); on f32 operands in
-            # 'bf16' it ties with the library's one pass at these shapes
-            # (experiments/torch_kernel_ab.py --steps, --only k2bf16)
-            if bf16s:
-                col = sub_matmul_bigk(col, L21, L1t, "bf16")
-            elif precision == "high" and F.dtype == torch.float32:
-                col = sub_matmul_bigk(col, L21, L1t, precision)
-            else:
-                col = col - schur_dot(L21, L1t, precision)
-        L11 = potrf_tile(col[:w])
-        F[k:k + w, k:k + w] = L11
-        if k + w < n:
-            F[k + w:, k:k + w] = trsm_right_lower_t(col[w:], L11,
-                                                    method="invert")
+    with span("chol.factor"):
+        for k in range(0, n, v):
+            with span("chol.update"):
+                w = min(v, n - k)
+                col = F[k:, k:k + w].to(compute_dtype(F.dtype))
+                if k > 0:
+                    L21, L1t = F[k:, :k], F[k:k + w, :k].T
+                    # K2 in 'high' and on bf16 storage's operands (its
+                    # bf16 entry beat the library's product and
+                    # subtraction over the bf16 path's 21 steps on the
+                    # H100); on f32 operands in 'bf16' it ties with the
+                    # library's one pass at these shapes
+                    # (experiments/torch_kernel_ab.py --steps, --only
+                    # k2bf16)
+                    if bf16s:
+                        col = sub_matmul_bigk(col, L21, L1t, "bf16")
+                    elif precision == "high" and F.dtype == torch.float32:
+                        col = sub_matmul_bigk(col, L21, L1t, precision)
+                    else:
+                        col = col - schur_dot(L21, L1t, precision)
+            with span("chol.panel"):
+                L11 = potrf_tile(col[:w])
+            with span("chol.solve"):
+                F[k:k + w, k:k + w] = L11
+                if k + w < n:
+                    F[k + w:, k:k + w] = trsm_right_lower_t(
+                        col[w:], L11, method="invert")
     return F
 
 

@@ -73,12 +73,14 @@ def run(argv) -> None:
         return cholesky_25d(g, desc)
 
     # warm-up (reference: cholesky_miniapp.cpp:105-107)
-    _, L = timed_run(run_chol, G, device=device)
+    with profiler.region("warmup_compile"):
+        _, L = timed_run(run_chol, G, device=device)
 
     times = []
     for rep in range(args.run):
         L = None                      # the previous factor's memory is free
-        ms, L = timed_run(run_chol, G, device=device)
+        with profiler.region("cholesky_rep"):
+            ms, L = timed_run(run_chol, G, device=device)
         times.append(ms)
         say(f"_result_ cholesky,psychol,{N},{N},{grid.P},{grid},"
             f"time,strong,{ms:.3f},{v}")
@@ -96,6 +98,10 @@ def run(argv) -> None:
             f"residual,strong,{res:.3e},{v}")
 
     if args.profile:
+        # the timed reps' tree: on -g 1x1x1 the flat Cholesky's step spans
+        # (chol.factor and its phases), host and stream time
+        if grid.rank == 0:
+            profiler.PP()
         # per-substep attribution (reference: PE(reduceA11_reduction) /
         # PE(choleskyA00_compute) / PE(updateA10_*) / PE(computeA11_dgemm)
         # throughout Cholesky.cpp:188-715 + PP(), CholeskyProfiler.h:17-32):

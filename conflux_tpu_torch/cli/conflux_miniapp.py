@@ -123,6 +123,10 @@ def run(argv) -> None:
                 say(Fd.cpu().numpy())
 
     if args.profile:
+        # the timed reps' tree: on -p 1x1x1 the single-card scheme's step
+        # spans (lu.factor and its phases), host and stream time
+        if grid.rank == 0:
+            profiler.PP()
         if M == N:
             # per-substep attribution (reference: PE(step0_reduce)... +
             # PP(), src/conflux/lu/profiler.hpp:5-19): one fenced run of
@@ -135,8 +139,8 @@ def run(argv) -> None:
             profiler.PC()
             with profiler.region("lu_profiled_total"):
                 lu_25d_profiled(G, desc, args.pivoting, args.precision)
-        if grid.rank == 0:
-            profiler.PP()
+            if grid.rank == 0:
+                profiler.PP()
 
 
 def main(argv=None) -> int:

@@ -86,7 +86,7 @@ from conflux_tpu_torch.ops.tri import (
     upper,
 )
 from conflux_tpu_torch.precision import ieee_fp32
-from conflux_tpu_torch.profiler import no_region
+from conflux_tpu_torch.profiler import span
 
 PIVOTINGS = ("tournament", "gather", "full", "none")
 
@@ -354,13 +354,14 @@ def _pivot_blocks(lu00):
 
 def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
                   G: torch.Tensor, rebalance_after=(),
-                  lookahead: bool = False, region=no_region):
+                  lookahead: bool = False, region=span):
     """The right-looking rank program on this rank's block G (not
     modified). Returns (F [Ml, Nl], this rank's block of the merged
     factor in pivot order, and pivots [M], the same on every rank).
     region(name) is entered around each substep (step0_reduce,
     step1_pivot, step23_rows, step45_trsm, step6_update): the profiled
-    program's fenced timers (lu/profiled.py); a null context otherwise."""
+    program's fenced timers (lu/profiled.py); `profiler.span` otherwise
+    (a null context unless profiled)."""
     g = desc.grid
     comm = g.comm
     v, Px, Py, Pz = desc.v, g.Px, g.Py, g.Pz

@@ -62,6 +62,7 @@ from conflux_tpu_torch.ops.tri import (
     upper,
 )
 from conflux_tpu_torch.precision import ieee_fp32
+from conflux_tpu_torch.profiler import span
 
 _BF16 = torch.bfloat16
 
@@ -221,6 +222,14 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
     itself: A is overwritten, and each compaction moves the live rows into
     its prefix in place, `chunk` rows at a time (`compact_prefix`), so
     peak memory is A and F. `chunk` applies only with `consume`."""
+    with span("lu.factor"):
+        return _crout_steps(A, v, precision, partition, consume, chunk)
+
+
+def _crout_steps(A, v, precision, partition, consume, chunk):
+    """`_getrf_crout`'s step loop, each step tiled by the phase spans
+    lu.update (the panel's big-K product), lu.panel (pivots, multipliers),
+    lu.solve (the winners' factor row) and lu.compact."""
     m, n = A.shape
     dev = A.device
     bf16s = A.dtype == _BF16
@@ -233,51 +242,59 @@ def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
     perm = torch.zeros(m, dtype=torch.int64, device=dev)
     dead = 0
     for k in range(0, n, v):
-        w = min(v, n - k)
-        m_r = R.shape[0]
-        panel = R[:, k:k + w].to(cdt)
-        if k > 0:
-            panel = sub_dot(panel, R[:, :k], F[:k, k:k + w], gmode)
-        piv, _, M, lu = factor_panel_raw(panel, avail, w, block=128,
-                                         merged=bf16s)
-        # panel columns: multipliers on live rows, the merged factor on
-        # this step's pivot rows (finished lanes; stale under bf16
-        # storage, whose lu_top comes from `lu`), raw values on dead rows
-        cols = torch.where(avail[:, None], M, panel)
-        avail[piv] = False         # avail is this function's own tensor
-        dead += w
-        # the winners' full factor row, each part written into F in place
-        Rpiv = R[piv]                                  # [w, n] row gather
-        lu_top = cols[piv] if lu is None else lu       # [w, w] merged rows
-        if k > 0:
-            F[k:k + w, :k] = Rpiv[:, :k]
-        F[k:k + w, k:k + w] = lu_top
-        if k + w < n:
-            rhs = Rpiv[:, k + w:].to(cdt)
+        with span("lu.update"):
+            w = min(v, n - k)
+            m_r = R.shape[0]
+            panel = R[:, k:k + w].to(cdt)
             if k > 0:
-                rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], gmode)
-            F[k:k + w, k + w:] = trsm_left_lower_unit(
-                unit_lower(lu_top), rhs, method="invert")
-        perm[k:k + w] = origin[piv]
-        live = m_r - dead
-        if _partition_now(dead, v, k, w, n, partition) and live > 0:
-            # sorted live rows without a host sync: dead rows sort last
-            rows = torch.arange(m_r, device=dev)
-            live_idx = torch.sort(torch.where(avail, rows, m_r)).values[:live]
-            # gather first, then write the panel columns into the
-            # compacted rows: the same rows as writing R first, and R
-            # (which may still be the caller's A) is never written unless
-            # the caller gave it up (consume)
-            R = (compact_prefix(R, live_idx, chunk) if consume
-                 else R[live_idx])
-            R[:, k:k + w] = cols[live_idx]
-            origin = origin[live_idx]
-            avail = torch.ones(live, dtype=torch.bool, device=dev)
-            dead = 0
-        elif live > 0:
-            if R is A and not consume:
-                R = A.clone()      # the first write must not reach A
-            R[:, k:k + w] = cols
+                panel = sub_dot(panel, R[:, :k], F[:k, k:k + w], gmode)
+        with span("lu.panel"):
+            piv, _, M, lu = factor_panel_raw(panel, avail, w, block=128,
+                                             merged=bf16s)
+            # panel columns: multipliers on live rows, the merged factor
+            # on this step's pivot rows (finished lanes; stale under bf16
+            # storage, whose lu_top comes from `lu`), raw values on dead
+            # rows
+            cols = torch.where(avail[:, None], M, panel)
+            avail[piv] = False     # avail is this function's own tensor
+            dead += w
+        with span("lu.solve"):
+            # the winners' full factor row, each part written into F in
+            # place
+            Rpiv = R[piv]                                  # [w, n] row gather
+            lu_top = cols[piv] if lu is None else lu       # [w, w] merged rows
+            if k > 0:
+                F[k:k + w, :k] = Rpiv[:, :k]
+            F[k:k + w, k:k + w] = lu_top
+            if k + w < n:
+                rhs = Rpiv[:, k + w:].to(cdt)
+                if k > 0:
+                    rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], gmode)
+                F[k:k + w, k + w:] = trsm_left_lower_unit(
+                    unit_lower(lu_top), rhs, method="invert")
+        with span("lu.compact"):
+            perm[k:k + w] = origin[piv]
+            live = m_r - dead
+            if _partition_now(dead, v, k, w, n, partition) and live > 0:
+                # sorted live rows without a host sync: dead rows sort
+                # last
+                rows = torch.arange(m_r, device=dev)
+                live_idx = torch.sort(
+                    torch.where(avail, rows, m_r)).values[:live]
+                # gather first, then write the panel columns into the
+                # compacted rows: the same rows as writing R first, and R
+                # (which may still be the caller's A) is never written
+                # unless the caller gave it up (consume)
+                R = (compact_prefix(R, live_idx, chunk) if consume
+                     else R[live_idx])
+                R[:, k:k + w] = cols[live_idx]
+                origin = origin[live_idx]
+                avail = torch.ones(live, dtype=torch.bool, device=dev)
+                dead = 0
+            elif live > 0:
+                if R is A and not consume:
+                    R = A.clone()  # the first write must not reach A
+                R[:, k:k + w] = cols
     if m > n:
         # tail: never-pivoted rows hold completed L rows, original order
         F[n:] = R
