@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      torch version, and assert that fp32 matrix products stay IEEE fp32;
   2. build: build (or load) every kernel from csrc/, one nvcc per source,
      started together: K1, the rank-1 panel kernel (rank1_panel.cu), and
-     K1 in double (rank1_panel_f64.cu); K3, the fused trailing update
+     K1 in double (rank1_panel_f64.cu); the panel's pivot-triangle solve
+     (panel_trsm.cu); K3, the fused trailing update
      (schur_update.cu); K2, the big-K R - A@B (bigk_gemm.cu) with its
      bf16-operand entry (its kernels in wgmma_bf16.cuh), and K4, the
      plain GEMM (bigk_gemm.cu); K5 and K6, the row
@@ -28,7 +29,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the grid route in double, its slab on chip), a [128, 2048] block
      (its cluster route) and the forced [128, 1536] pivot-row and
      [64, 1536] Cholesky tiles (its tile route), each call checked
-     against the double route counter it must move;
+     against the double route counter it must move; then the panel's
+     pivot-triangle solve (panel_trsm.cu) against its plain version (the
+     chain of 32-wide inverses and products it replaces) on the same CUDA
+     inputs, in f32 and f64, at crout's block and group updates
+     ([384, 128], [1024, 512]), Cholesky's block update ([448, 64]) and a
+     ragged [100, 96], each call checked by its launch counter and timed
+     beside the plain version and torch.linalg.solve_triangular (cuBLAS's
+     trsm);
   4. K3 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
      SYNCS instructions; then K3 against its plain PyTorch version on the
      same CUDA inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's
@@ -390,6 +398,11 @@ K1_F64_SHAPES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
                  (128, 2048, "unforced", 0), (128, 1536, "forced", 128),
                  (64, 1536, "forced", 64))
 K1_F64_TOL = 1e-12
+# the pivot-triangle solve (r, n, group): crout's block update at its
+# widest, its group update, Cholesky's 64-wide block update at its widest,
+# a ragged one
+TRSM_SHAPES = ((384, 128, False), (1024, 512, True), (448, 64, False),
+               (100, 96, False))
 # K2's bf16-operand entry (tag, m, k, n, B transposed): the bf16 crout
 # path's first and last panel updates, and the bf16 Cholesky path's (B the
 # transposed view F[k:k+w, :k].T, read in place)
@@ -502,16 +515,17 @@ def phase_device():
 
 
 SOURCES = ("rank1_panel", "schur_update", "bigk_gemm", "row_move",
-           "rank1_panel_f64")
+           "rank1_panel_f64", "panel_trsm")
 
 
 def phase_build():
     from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel, \
-        cuda_scatter
+        cuda_scatter, cuda_trsm
 
     t0 = time.perf_counter()
     _build.build(SOURCES)
     cuda_panel._load()
+    cuda_trsm._load()
     cuda_panel._load_f64()
     cuda_gemm._load()
     cuda_gemm._load_bigk()
@@ -627,6 +641,62 @@ def phase_k1():
                      "library_ms": t_l, "bound_ms": bound[0],
                      "bound_by": bound[1]})
     return rows
+
+
+def phase_trsm():
+    """The pivot-triangle solve against its plain version on the same CUDA
+    inputs, in f32 and f64: lu the merged factors of the pivot rows that
+    partial pivoting picks from a random [2n, n] block (on the CPU), B
+    random; within 2 eps kappa_inf(L) max|B| of the plain version (each
+    side's forward error is of the order of eps kappa(L) max|B|)."""
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_trsm
+    from conflux_tpu_torch.ops.panel import _pivot_solve_plain, select_pivots
+    from conflux_tpu_torch.timing import per_call_ms
+
+    for r, n, group in TRSM_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            rng = np.random.default_rng(r + n)
+            block = torch.from_numpy(rng.standard_normal((2 * n, n)))
+            _, _, lu = select_pivots(block.to(dtype), torch.ones(
+                2 * n, dtype=torch.bool), n, block=128)
+            L64 = torch.tril(lu.double(), -1) + torch.eye(n,
+                                                          dtype=torch.float64)
+            kappa = float(L64.abs().sum(1).max()
+                          * torch.linalg.inv(L64).abs().sum(1).max())
+            lu = lu.T.contiguous().cuda().T          # column-major, as formed
+            B = torch.from_numpy(rng.standard_normal((r, n))).to("cuda",
+                                                                 dtype)
+            before = cuda_trsm.LAUNCHES
+            got = cuda_trsm.solve_unit_lower_t(B, lu)
+            torch.cuda.synchronize()
+            if cuda_trsm.LAUNCHES != before + 1:
+                fail(f"panel_trsm [{r}, {n}]: launch counter moved "
+                     f"{cuda_trsm.LAUNCHES - before}")
+            ref = _pivot_solve_plain(B, lu, group)
+            diff = float((got - ref).abs().max())
+            scale = torch.finfo(dtype).eps * kappa * float(B.abs().max())
+            L = L64.to("cuda", dtype)
+            t_k = per_call_ms(cuda_trsm.solve_unit_lower_t, B, lu)
+            t_p = per_call_ms(_pivot_solve_plain, B, lu, group)
+            t_l = per_call_ms(lambda b: torch.linalg.solve_triangular(
+                L.T, b, upper=True, left=False, unitriangular=True), B)
+            size = torch.finfo(dtype).bits // 8
+            # r n (n - 1) / 2 multiply-adds; B and X once, L's strict
+            # lower part once
+            bound = _bound(1.0 * r * n * (n - 1),
+                           size * (2.0 * r * n + n * (n - 1) / 2),
+                           FP64_FLOP_S if dtype == torch.float64
+                           else FP32_FLOP_S)
+            tag = f"panel_trsm [{r}, {n}] {str(dtype)[6:]}"
+            print(f"{tag}: max|diff| {diff:.3e} (eps kappa max|B| "
+                  f"{scale:.3e}, kappa {kappa:.3g}), kernel {t_k:.4f} ms, "
+                  f"plain ({'group' if group else 'block'} chain) "
+                  f"{t_p:.4f} ms, torch.linalg.solve_triangular "
+                  f"{t_l:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            if not diff <= 2 * scale:
+                fail(f"{tag}: max|diff| {diff} > 2 * {scale}")
 
 
 def phase_k1_f64():
@@ -2562,6 +2632,7 @@ def main() -> int:
           f"{ {p: ROUTE_LAUNCHES_F64[p] for p in ('crout', 'cholesky')} }")
     k1_rows = phase_k1()
     k1f64_rows = phase_k1_f64()
+    phase_trsm()
     medium_bf16 = phase_medium_probe()
     k3_rows = phase_k3(medium_bf16)
     k2_rows = phase_k2(medium_bf16)

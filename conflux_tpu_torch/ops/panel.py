@@ -9,10 +9,13 @@ columns as rows, matrix rows as lanes). Per `_BLOCK`-wide column block
 the rank-1 eliminations run in K1 (ops/cuda_panel.py, CUDA tensors) or in
 its plain version `_rank1_block_t` (CPU tensors); between blocks the
 trailing panel columns are updated by matrix products in transposed space
-(pivot-lane extraction by a one-hot product, then the multiplier outer
-product). Every product here forms multipliers or factors, so every one
-runs in IEEE fp32, or in f64 on a float64 panel (whose blocks take K1 in
-double on the card).
+(pivot-lane extraction by a one-hot product, the pivot triangle's solve,
+then the multiplier outer product). The triangle's solve runs in the
+hand-written kernel of ops/cuda_trsm.py on CUDA tensors and in its plain
+version `_pivot_solve_plain` on CPU tensors (`_pivot_solve_t`). Every
+product here forms multipliers or factors, so every one runs in IEEE
+fp32, or in f64 on a float64 panel (whose blocks take K1 in double on the
+card).
 """
 
 from __future__ import annotations
@@ -127,6 +130,36 @@ def _rank1_dispatch(Bt: torch.Tensor, availf: torch.Tensor, j0: int,
     raise ValueError(f"no rank-1 block kernel for device {Bt.device}")
 
 
+def _pivot_solve_plain(Tpiv_t: torch.Tensor, lu: torch.Tensor,
+                       group: bool) -> torch.Tensor:
+    """Plain PyTorch version of the pivot-triangle solve: U12t = Tpiv_t
+    L^{-T}, L = tril(lu, -1) + I, with the JAX package's arithmetic: a
+    block's triangle by its explicit inverse, a group's (group=True) by
+    blocked substitution; both invert no triangle wider than 32 (pivot-
+    multiplier triangles amplify like c^n)."""
+    n = lu.shape[0]
+    L11 = torch.tril(lu, -1) + torch.eye(n, dtype=lu.dtype, device=lu.device)
+    if group:
+        return trsm_right_lower_t(Tpiv_t, L11, method="invert")
+    return Tpiv_t @ _inv_lower_rec(L11, unit=True, base=32).T
+
+
+def _pivot_solve_t(Tpiv_t: torch.Tensor, lu: torch.Tensor,
+                   group: bool) -> torch.Tensor:
+    """U12t = Tpiv_t L^{-T} with L the unit lower triangle of the pivot
+    rows' merged factors lu [n, n] (column-major, as the one-hot product
+    leaves it). The hand-written kernel (ops/cuda_trsm.py) for CUDA
+    tensors, whatever `group`; the plain version for CPU tensors; anything
+    else raises. There is no fallback between the two."""
+    if lu.is_cuda:
+        from conflux_tpu_torch.ops import cuda_trsm
+
+        return cuda_trsm.solve_unit_lower_t(Tpiv_t, lu)
+    if lu.device.type == "cpu":
+        return _pivot_solve_plain(Tpiv_t, lu, group)
+    raise ValueError(f"no pivot-triangle solve for device {lu.device}")
+
+
 def _lu_select_loop_t(panel: torch.Tensor, active: torch.Tensor, npiv: int,
                       forced: bool, block: int | None = None,
                       finish: bool = False):
@@ -157,7 +190,6 @@ def _lu_select_loop_t(panel: torch.Tensor, active: torch.Tensor, npiv: int,
         g1 = min(g0 + group, npiv)
         for b0 in range(g0, g1, block):
             b1 = min(b0 + block, g1)
-            bw = b1 - b0
             Bt2, availf2, pivw, okb = _rank1_dispatch(
                 Pt[b0:b1], availf, b0, forced, finish)
             piv[b0:b1] = pivw
@@ -170,11 +202,7 @@ def _lu_select_loop_t(panel: torch.Tensor, active: torch.Tensor, npiv: int,
                 onehot = onehot_of(pivw, okb)                     # [bw, m]
                 Tpiv_t = T_t @ onehot.T                           # [rest, bw]
                 lu_blk = (Bt2 @ onehot.T).T                       # [bw, bw]
-                L11 = torch.tril(lu_blk, -1) + torch.eye(bw, dtype=dt,
-                                                         device=dev)
-                # base=32: never form an explicit inverse of a triangle
-                # wider than 32 (pivot-multiplier triangles amplify like c^n)
-                U12t = Tpiv_t @ _inv_lower_rec(L11, unit=True, base=32).T
+                U12t = _pivot_solve_t(Tpiv_t, lu_blk, group=False)
                 Lmul_t = torch.where(availf2 > 0, Bt2, 0.0)       # [bw, m]
                 T_new = T_t - U12t @ Lmul_t
                 if forced:
@@ -186,15 +214,12 @@ def _lu_select_loop_t(panel: torch.Tensor, active: torch.Tensor, npiv: int,
                 Pt[b1:g1] = T_new
         if g1 < npiv:
             # outer K = g1-g0 update of everything beyond the group
-            gw = g1 - g0
             onehot_g = onehot_of(piv[g0:g1], ok[g0:g1])           # [gw, m]
             Bt_g = Pt[g0:g1]
             T_t = Pt[g1:npiv]
             Tpiv_t = T_t @ onehot_g.T                             # [rest, gw]
             lu_g = (Bt_g @ onehot_g.T).T                          # [gw, gw]
-            L11_g = torch.tril(lu_g, -1) + torch.eye(gw, dtype=dt, device=dev)
-            # gw-wide triangle: blocked substitution, 32-wide inverses only
-            U12t = trsm_right_lower_t(Tpiv_t, L11_g, method="invert")
+            U12t = _pivot_solve_t(Tpiv_t, lu_g, group=True)
             Lmul_g = torch.where(availf > 0, Bt_g, 0.0)           # [gw, m]
             T_new = T_t - U12t @ Lmul_g
             if forced:

@@ -1,11 +1,12 @@
 """A/B of kernel builds in one call: K1 (rank1_panel.cu), K1 in double
-(rank1_panel_f64.cu), K3 (schur_update.cu), K2 and K4 (bigk_gemm.cu) and
-K5/K6 (row_move.cu); and K2 against its plain version at the step shapes
-of a crout and a Cholesky factorization.
+(rank1_panel_f64.cu), K3 (schur_update.cu), K2 and K4 (bigk_gemm.cu),
+K5/K6 (row_move.cu) and the panel's pivot-triangle solve (panel_trsm.cu);
+and K2 against its plain version at the step shapes of a crout and a
+Cholesky factorization.
 
     python3 -m experiments.torch_kernel_ab --lib old=_ab/old \
         --lib new=conflux_tpu_torch/csrc [--lib name=dir ...] [--quick] \
-        [--only k1|k1f64|k2|k2bf16|k3|k4|rows] [--steps]
+        [--only k1|k1f64|k2|k2bf16|k3|k4|rows|trsm] [--steps]
 
 Each --lib names a directory holding some of those sources (with the
 csrc/ headers they include, or beside csrc/, whose headers are on the
@@ -46,6 +47,15 @@ the same turns run at the 41 big-K products of one N=32768, v=1536 bf16
 crout and the 21 of one bf16 Cholesky (B the view G[k:k+w, :k].T), in
 'bf16', with the sums over each factorization.
 
+--only trsm holds each build's pivot-triangle solve at the panel's
+shapes (TRSM_SHAPES: crout's block and group updates, Cholesky's block
+update), in f32 and f64, to the plain version (the chain of 32-wide
+inverses and products it replaces, `ops/panel._pivot_solve_plain`) within
+2 eps kappa(L) max|B|, and times it in turns beside that chain and
+torch.linalg.solve_triangular (cuBLAS's trsm): per call as
+timing.per_call_ms (host launch work included where it is the longer)
+and on the device alone (`graph_ms`: calls captured in a CUDA graph).
+
 --steps times the package's K2 (ops/cuda_gemm.sub_matmul_bigk) against
 its plain version (`R - schur_dot(A, B, mode)`, what the drivers ran
 before they routed these products through K2) in turns, in 'high' and
@@ -65,7 +75,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel, cuda_scatter
+from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel, \
+    cuda_scatter, cuda_trsm
 from conflux_tpu_torch.timing import per_call_ms
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -73,7 +84,11 @@ OUT = ROOT / "_ab" / "build"
 K4_SHAPES = ((16384, 512, 16384), (8192, 1024, 8192), (8192, 8192, 8192))
 N, V = 32768, 1536
 STEMS = ("rank1_panel", "rank1_panel_f64", "schur_update", "bigk_gemm",
-         "row_move")
+         "row_move", "panel_trsm")
+# the pivot-triangle solve (r, n, group): crout's block update at its
+# widest and its group update, Cholesky's 64-wide block update at its
+# widest
+TRSM_SHAPES = ((384, 128, False), (1024, 512, True), (448, 64, False))
 # K1 (w, m, mode, j0): the main paths' blocks (crout's first and a late
 # panel, a mid flat/swap/split panel, the forced tiles of flat's pivot
 # rows and Cholesky's potrf, with their last and their second first
@@ -371,6 +386,24 @@ def bigk_bf16_fn(lib):
             raise RuntimeError(f"conflux_sub_matmul_bigk_bf16 error {err}")
         run.route = route.value
         return out
+    return run
+
+
+def trsm_fn(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f = lib.conflux_panel_trsm
+    f.argtypes = [p, p, p, i, i, i, p]
+    f.restype = i
+
+    def run(B, lu):
+        r, n = B.shape
+        X = torch.empty_like(B)
+        err = f(B.data_ptr(), lu.data_ptr(), X.data_ptr(), r, n,
+                int(B.dtype == torch.float64),
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"conflux_panel_trsm error {err}")
+        return X
     return run
 
 
@@ -904,6 +937,89 @@ def ab_rows(libs, quick):
         torch.cuda.empty_cache()
 
 
+def graph_ms(fn, *args, calls=20, reps=5):
+    """Device milliseconds per call of fn(*args): `calls` calls captured in
+    one CUDA graph, replayed between two events (no host launch work in
+    the time); the median over `reps` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[reps // 2]
+
+
+def ab_trsm(libs, quick, unchecked=False):
+    from conflux_tpu_torch.ops.panel import _pivot_solve_plain, select_pivots
+
+    names = [n for n in libs if "panel_trsm" in libs[n]]
+    fns = {n: trsm_fn(libs[n]["panel_trsm"]) for n in names}
+    dtypes = (torch.float32,) if quick else (torch.float32, torch.float64)
+    for r, n, group in TRSM_SHAPES:
+        for dtype in dtypes:
+            rng = np.random.default_rng(r + n)
+            block = torch.from_numpy(rng.standard_normal((2 * n, n)))
+            _, _, lu = select_pivots(block.to(dtype), torch.ones(
+                2 * n, dtype=torch.bool), n, block=128)
+            L64 = torch.tril(lu.double(), -1) + torch.eye(n,
+                                                          dtype=torch.float64)
+            kappa = float(L64.abs().sum(1).max()
+                          * torch.linalg.inv(L64).abs().sum(1).max())
+            lu = lu.T.contiguous().cuda().T
+            B = torch.from_numpy(rng.standard_normal((r, n))).to("cuda",
+                                                                 dtype)
+            ref = _pivot_solve_plain(B, lu, group)
+            tol = 2 * torch.finfo(dtype).eps * kappa * float(B.abs().max())
+            times = {nm: [] for nm in names}
+            for nm in turns(names):
+                got = fns[nm](B, lu)
+                torch.cuda.synchronize()
+                diff = float((got - ref).abs().max())
+                if not diff <= tol:
+                    msg = (f"panel_trsm {nm} [{r}, {n}] {dtype}: max|diff| "
+                           f"{diff} > {tol}")
+                    if not unchecked:
+                        raise SystemExit(msg)
+                    print(msg + ", timed all the same (--unchecked)")
+                times[nm].append(per_call_ms(fns[nm], B, lu))
+            device = {nm: graph_ms(fns[nm], B, lu) for nm in names}
+            L = L64.to("cuda", dtype)
+            t_w = per_call_ms(cuda_trsm.solve_unit_lower_t, B, lu)
+            t_p = per_call_ms(_pivot_solve_plain, B, lu, group)
+            def library(b):
+                return torch.linalg.solve_triangular(
+                    L.T, b, upper=True, left=False, unitriangular=True)
+
+            t_l = per_call_ms(library, B)
+            d_p = graph_ms(_pivot_solve_plain, B, lu, group)
+            d_l = graph_ms(library, B)
+            tag = f"panel_trsm [{r}, {n}] {str(dtype)[6:]:8s}"
+            print(f"{tag} package wrapper {t_w:.4f} ms, plain "
+                  f"({'group' if group else 'block'} chain) {t_p:.4f} ms "
+                  f"(device {d_p:.4f}), torch.linalg.solve_triangular "
+                  f"{t_l:.4f} ms (device {d_l:.4f})")
+            for nm in names:
+                print(f"{tag} {nm:10s}: {[round(t, 4) for t in times[nm]]} "
+                      f"ms, best {min(times[nm]):.4f} ms, device "
+                      f"{device[nm]:.4f} ms")
+            del B, lu, ref
+
+
 def host_overhead():
     """Host microseconds per call of each package wrapper and of the
     library call, on inputs too small for the device to matter."""
@@ -922,7 +1038,9 @@ def host_overhead():
              "sub_matmul_bigk_bf16 B^T": (cuda_gemm.sub_matmul_bigk_bf16,
                                           (R, a, a.T, "bf16")),
              "torch.mm bf16": (lambda x, y: torch.mm(
-                 x, y, out_dtype=torch.float32), (a, a))}
+                 x, y, out_dtype=torch.float32), (a, a)),
+             "solve_unit_lower_t": (cuda_trsm.solve_unit_lower_t,
+                                    (R[:8].clone(), R.T))}
     for name, (fn, args) in cases.items():
         for _ in range(20):
             fn(*args)
@@ -944,7 +1062,7 @@ def main():
                     help="fewer shapes of each kernel")
     ap.add_argument("--only", action="append",
                     choices=("k1", "k1f64", "k2", "k2bf16", "k3", "k4",
-                             "rows"),
+                             "rows", "trsm"),
                     help="run only these kernels' A/B (repeatable)")
     ap.add_argument("--steps", action="store_true",
                     help="K2 against its plain version at the step shapes "
@@ -952,7 +1070,7 @@ def main():
                     "k2bf16 alone: the bf16 entry at the bf16 paths' step "
                     "shapes)")
     ap.add_argument("--unchecked", action="store_true",
-                    help="K1, K1 in double, K3: time builds that disagree with the plain "
+                    help="K1, K1 in double, K3, trsm: time builds that disagree with the plain "
                     "version (variants that leave out work, to attribute "
                     "time)")
     ap.add_argument("--sass", action="append", default=[],
@@ -967,7 +1085,7 @@ def main():
                          text=True).stdout.strip()
     print(f"card: {smi}")
     only = set(args.only or ("k1", "k1f64", "k2", "k2bf16", "k3", "k4",
-                             "rows"))
+                             "rows", "trsm"))
     if "k1" in only:
         ab_k1(libs, args.quick, args.unchecked)
     if "k1f64" in only:
@@ -977,6 +1095,8 @@ def main():
     for key, fn in (("k2", ab_k2), ("k4", ab_k4), ("rows", ab_rows)):
         if key in only:
             fn(libs, args.quick)
+    if "trsm" in only:
+        ab_trsm(libs, args.quick, args.unchecked)
     if "k2bf16" in only:
         ab_k2bf16(libs, args.quick, args.steps)
     if args.steps and only != {"k2bf16"}:

@@ -5,9 +5,10 @@ plain PyTorch versions, the split pass of K3 and K2 against
 ops/tri._split_hi_lo bit for bit, the routes of K1, K2, K3, K4 and K5/K6
 by their launch counters, the crout LU (all three compactions), the flat
 LU and the Cholesky end to end on the card, and the entry points' results
-bit-identical whatever TF32 setting the caller chose, and K1 in double
-(csrc/rank1_panel_f64.cu) on each of its routes. Without a card every
-test here skips.
+bit-identical whatever TF32 setting the caller chose, K1 in double
+(csrc/rank1_panel_f64.cu) on each of its routes, and the panel's
+pivot-triangle solve (csrc/panel_trsm.cu) against its plain version and
+by its launches per factorization. Without a card every test here skips.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -20,13 +21,19 @@ import torch
 
 from conflux_tpu_torch.cholesky.single import cholesky
 from conflux_tpu_torch.lu.single import lu_factor
-from conflux_tpu_torch.ops import cuda_gemm, cuda_panel, cuda_scatter
+from conflux_tpu_torch.ops import cuda_gemm, cuda_panel, cuda_scatter, \
+    cuda_trsm
 from conflux_tpu_torch.ops.gemm import (
     _matmul_t,
     _schur_update_t,
     _sub_matmul_bigk_t,
 )
-from conflux_tpu_torch.ops.panel import _rank1_block_t
+from conflux_tpu_torch.ops.panel import (
+    _pivot_solve_plain,
+    _pivot_solve_t,
+    _rank1_block_t,
+    select_pivots,
+)
 from conflux_tpu_torch.ops.scatter import _gather_rows_t, _scatter_rows_t
 from conflux_tpu_torch.ops.tri import _split_hi_lo
 from conflux_tpu_torch.solve import cho_solve, lu_solve
@@ -1051,3 +1058,119 @@ def test_stepped_crout_is_the_crout_lu_on_card(card):
 
 def _counts():
     return {"k3": cuda_gemm.SCHUR_UPDATE_LAUNCHES}
+
+
+# the pivot-triangle solve (csrc/panel_trsm.cu): n the panel's block
+# widths (32, Cholesky's 64, a ragged 96, crout's 128) and its group width
+# 512; r the rows solved for
+TRSM_N = [32, 64, 96, 128, 512]
+TRSM_R = [1, 128, 384, 1024]
+_TRIANGLES = {}
+
+
+def _pivot_triangle(n, dtype):
+    """lu [n, n] column-major as the panel forms it (on the CPU): the merged
+    factors of the pivot rows that partial pivoting selects from a random
+    [2n, n] block, and kappa_inf(L) from float64."""
+    if (n, dtype) not in _TRIANGLES:
+        rng = np.random.default_rng(n)
+        block = torch.from_numpy(rng.standard_normal((2 * n, n))).to(dtype)
+        _, _, lu = select_pivots(block, torch.ones(2 * n, dtype=torch.bool),
+                                 n, block=128)
+        L = torch.tril(lu.double(), -1) + torch.eye(n, dtype=torch.float64)
+        kappa = float(L.abs().sum(1).max()
+                      * torch.linalg.inv(L).abs().sum(1).max())
+        _TRIANGLES[n, dtype] = lu.T.contiguous(), kappa
+    return _TRIANGLES[n, dtype]
+
+
+@pytest.mark.parametrize("group", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", TRSM_R)
+@pytest.mark.parametrize("n", TRSM_N)
+def test_pivot_solve_matches_plain_on_card(card, n, r, dtype, group):
+    luT, kappa = _pivot_triangle(n, dtype)
+    lu = luT.to(card).T
+    B = torch.from_numpy(np.random.default_rng(n + r).standard_normal(
+        (r, n))).to(card, dtype)
+    before = cuda_trsm.LAUNCHES
+    X = _pivot_solve_t(B, lu, group)
+    torch.cuda.synchronize()
+    assert cuda_trsm.LAUNCHES == before + 1
+    # the plain version on the same CUDA tensors: the explicit-inverse
+    # chain of a block's update or the blocked substitution of a group's
+    ref = _pivot_solve_plain(B, lu, group)
+    L = torch.tril(lu.double(), -1) + torch.eye(n, dtype=torch.float64,
+                                                device=card)
+    exact = torch.linalg.solve_triangular(L.T, B.double(), upper=True,
+                                          left=False)
+    # a triangular solve's forward error is of the order of eps kappa(L)
+    # max|B| (the plain versions stay under a tenth of it on the CPU); each
+    # side within it of the float64 solve, so within twice of each other
+    tol = torch.finfo(dtype).eps * kappa * float(B.abs().max())
+    assert float((X.double() - exact).abs().max()) <= tol
+    assert float((X - ref).abs().max()) <= 2 * tol
+    assert torch.equal(X, cuda_trsm.solve_unit_lower_t(B, lu))
+
+
+def test_pivot_solve_checks_its_inputs(card):
+    B = torch.zeros(8, 64, device=card)
+    lu = torch.eye(64, device=card).T
+    before = cuda_trsm.LAUNCHES
+    with pytest.raises(ValueError, match="512"):
+        cuda_trsm.solve_unit_lower_t(torch.zeros(8, 513, device=card),
+                                     torch.eye(513, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_trsm.solve_unit_lower_t(torch.zeros(64, 8, device=card).T, lu)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_trsm.solve_unit_lower_t(B, torch.rand(64, 64, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_trsm.solve_unit_lower_t(
+            B, torch.zeros(128, 128, device=card)[:64, :64].T)
+    with pytest.raises(TypeError):
+        cuda_trsm.solve_unit_lower_t(B.half(), lu.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_trsm.solve_unit_lower_t(B.cpu(), lu.cpu())
+    assert cuda_trsm.LAUNCHES == before
+
+
+def _solves_per_panel(w, block):
+    """Pivot-triangle solves of one w-wide panel in `block`-wide K1 blocks
+    (ops/panel._lu_select_loop_t): one per block that is not the last of
+    its 512-wide group, one per group that is not the panel's last."""
+    groups = range(0, w, max(512, block))
+    return (sum(len(range(g0, min(g0 + max(512, block), w), block)) - 1
+                for g0 in groups) + len(groups) - 1)
+
+
+def test_crout_at_4096_solves_pivot_triangles_on_card(card):
+    # v = 1536 'high', the main path's call: every step's panel solves in
+    # the kernel, 9 + 2 times for a full 1536-wide panel
+    n, v = 4096, 1536
+    g = torch.Generator(device=card).manual_seed(11)
+    A = torch.randn(n, n, generator=g, device=card)
+    before = cuda_trsm.LAUNCHES
+    F, perm = lu_factor(A, v=v, precision="high", scheme="crout")
+    torch.cuda.synchronize()
+    assert _solves_per_panel(1536, 128) == 9 + 2
+    assert cuda_trsm.LAUNCHES - before == sum(
+        _solves_per_panel(min(v, n - k), 128) for k in range(0, n, v))
+    assert torch.equal(torch.sort(perm).values, torch.arange(n, device=card))
+    assert lu_residual_blocked(A, F, perm) <= 1e-6
+
+
+def test_cholesky_at_4096_solves_pivot_triangles_on_card(card):
+    # each [w, w] tile's unpivoted LU in 64-wide blocks: 21 + 2 solves for
+    # a full 1536-wide tile
+    n, v = 4096, 1536
+    g = torch.Generator(device=card).manual_seed(12)
+    X = torch.rand(n, n, generator=g, device=card)
+    A = (X + X.T) / 2 + n * torch.eye(n, device=card)
+    before = cuda_trsm.LAUNCHES
+    L = cholesky(A, v=v, precision="high")
+    torch.cuda.synchronize()
+    assert _solves_per_panel(1536, 64) == 21 + 2
+    assert cuda_trsm.LAUNCHES - before == sum(
+        _solves_per_panel(min(v, n - k), 64) for k in range(0, n, v))
+    assert torch.equal(L, torch.tril(L))
+    assert cholesky_residual_blocked(A, L) <= 1e-6

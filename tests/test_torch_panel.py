@@ -1,12 +1,15 @@
 """Parity of the PyTorch port's panel factorization (conflux_tpu_torch/ops/
 panel.py) with the JAX reference (conflux_tpu/ops/panel.py), and checks of
-the rank-1 block kernel K1 (conflux_tpu_torch/ops/cuda_panel.py).
+the rank-1 block kernel K1 (conflux_tpu_torch/ops/cuda_panel.py) and of the
+pivot-triangle solve's dispatch (conflux_tpu_torch/ops/cuda_trsm.py).
 
 The plain rank-1 block is held to both the JAX twin and the Pallas kernel
 run in interpret mode, as tests/test_panel.py runs it. Pivots must be
 equal; values agree within 1e-5 * max|ref| (both sides are fp32 with the
 same operation order up to the summation order of the matrix products).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 import conflux_tpu.ops.panel as jpanel
 import conflux_tpu_torch.ops.panel as tpanel
 from conflux_tpu.ops.pallas_panel import rank1_block_pallas_t
-from conflux_tpu_torch.ops import cuda_panel
+from conflux_tpu_torch.ops import cuda_panel, cuda_trsm
 
 TOL = 1e-5
 MODES = ["unforced", "forced", "finish"]
@@ -208,3 +211,66 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_panel.rank1_block_t(torch.zeros(4, 16), torch.ones(1, 16))
     assert cuda_panel.LAUNCHES == before
+
+
+# the pivot-triangle solve of the panel's updates: n the block widths (32,
+# Cholesky's 64, a ragged 96, crout's 128) and the group width 512; r the
+# rows solved for (one, and up to the rows past a 1536-wide panel's first
+# group)
+SOLVE_N = [32, 64, 96, 128, 512]
+SOLVE_R = [1, 128, 384, 1024]
+
+
+@functools.lru_cache(maxsize=None)
+def _pivot_triangle(n, dtype):
+    """lu [n, n], column-major as the panel forms it: the merged factors of
+    the n pivot rows that partial pivoting selects from a random [2n, n]
+    block (its L's entries within 1), with kappa_inf(L) from float64."""
+    rng = np.random.default_rng(n)
+    block = torch.from_numpy(rng.standard_normal((2 * n, n))).to(dtype)
+    _, _, lu = tpanel.select_pivots(block, torch.ones(2 * n, dtype=torch.bool),
+                                    n, block=128)
+    L = torch.tril(lu.double(), -1) + torch.eye(n, dtype=torch.float64)
+    kappa = float(L.abs().sum(1).max() * torch.linalg.inv(L).abs().sum(1).max())
+    return lu.T.contiguous().T, kappa
+
+
+@pytest.mark.parametrize("group", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", SOLVE_R)
+@pytest.mark.parametrize("n", SOLVE_N)
+def test_pivot_solve_plain_matches_solve_triangular(n, r, dtype, group):
+    lu, kappa = _pivot_triangle(n, dtype)
+    B = torch.from_numpy(
+        np.random.default_rng(n + r).standard_normal((r, n))).to(dtype)
+    X = tpanel._pivot_solve_t(B, lu, group)
+    assert torch.equal(X, tpanel._pivot_solve_plain(B, lu, group))
+    L = torch.tril(lu.double(), -1) + torch.eye(n, dtype=torch.float64)
+    ref = torch.linalg.solve_triangular(L.T, B.double(), upper=True,
+                                        left=False)
+    # a triangular solve's forward error is of the order of eps kappa(L)
+    # max|B|; both plain forms stay under a tenth of it here
+    tol = torch.finfo(dtype).eps * kappa * float(B.abs().max())
+    assert float((X.double() - ref).abs().max()) <= tol
+
+
+def test_pivot_solve_on_cpu_never_loads_the_kernel(rng, monkeypatch):
+    # a panel past one group: inner and outer updates both solve
+    from conflux_tpu_torch.ops import _build
+
+    def refuse(name):
+        raise AssertionError(f"{name} was loaded for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = cuda_trsm.LAUNCHES
+    panel = torch.from_numpy(rng.standard_normal((600, 530)).astype(np.float32))
+    _, ok, _ = tpanel._lu_select_loop_t(
+        panel, torch.ones(600, dtype=torch.bool), 530, forced=False,
+        finish=True)
+    assert bool(ok.all()) and cuda_trsm.LAUNCHES == before
+    with pytest.raises(ValueError, match="no pivot-triangle solve"):
+        tpanel._pivot_solve_t(torch.zeros(4, 8, device="meta"),
+                              torch.zeros(8, 8, device="meta"), False)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_trsm.solve_unit_lower_t(torch.zeros(4, 8), torch.eye(8))
+    assert cuda_trsm.LAUNCHES == before
