@@ -32,7 +32,8 @@ Pivoting lives in the v-wide panel only (masked argmax) and creates no
 data-dependent shape, so the step loops never wait for the device.
 
 Dtypes, as in the JAX package: float32; float64 end to end, in every
-scheme (its panels run K1 in double on the card, its products IEEE f64);
+scheme (its panels run K1 in double on the card, its products IEEE f64 in
+'highest' and 'high', one bf16 pass in 'bf16');
 and bfloat16 STORAGE in crout (every compaction) and flat: the working
 buffer and the factor are bf16, while panels, pivot selection, TRSMs and
 every reduction run in f32 and the trailing products accumulate in f32
@@ -509,7 +510,10 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
     'bf16' (bf16 products with fp32 accumulation) for the big products of
     each step; panels and TRSMs stay IEEE fp32 whatever TF32 setting the
     caller chose (`precision.ieee_fp32`). dtype: float32, float64 (f64
-    throughout, every precision an IEEE f64 product) or bfloat16 storage
+    storage, panels and TRSMs; its big products one IEEE f64 product in
+    'highest' and 'high', while 'bf16' rounds their f64 operands to bf16,
+    one pass with fp32 accumulation, as the JAX package's x64 mode does,
+    so the factor has the accuracy of bf16 products) or bfloat16 storage
     (crout and flat, the big products 'bf16' whatever `precision` says;
     any other scheme runs crout); complex inputs raise and point to
     `lu.csingle.clu_factor`.

@@ -24,6 +24,10 @@ import torch
 
 from conflux_tpu_torch.ops.tri import schur_dot
 
+# the products `sub_dot` formed on a float64 R (cuBLAS's on the card): one
+# IEEE f64 `torch.mm` each in 'highest' and 'high', one bf16 pass in 'bf16'
+SUB_DOT_F64_PRODUCTS = 0
+
 # mode -> (R's dtype, bf16 products per operand chunk: hi*hi, hi*lo, lo*hi
 # for 'high', hi*hi for the others); the plain version and the kernel's
 # wrapper both check their arguments against it
@@ -104,10 +108,15 @@ def sub_dot(R: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     float32, or bfloat16 in 'bf16'), whose plain version is
     `R - schur_dot(A, B, precision)` bit for bit; that expression itself in
     'highest' (IEEE fp32 `torch.mm`), 'bf16out' (the product rounded to
-    bf16 first, as the JAX drivers form it) and on a float64 R (an IEEE
-    f64 `torch.mm`, as the JAX package's x64 mode runs it)."""
+    bf16 first, as the JAX drivers form it) and on a float64 R, counted
+    in SUB_DOT_F64_PRODUCTS: in 'highest' and 'high' one IEEE f64
+    `torch.mm`, as the JAX package's x64 mode runs it; in 'bf16' the f64
+    operands rounded to bf16, one pass with fp32 accumulation."""
+    global SUB_DOT_F64_PRODUCTS
     if precision in ("high", "bf16") and R.dtype == torch.float32:
         return sub_matmul_bigk(R, A, B, precision)
+    if R.dtype == torch.float64:
+        SUB_DOT_F64_PRODUCTS += 1
     return R - schur_dot(A, B, precision)
 
 

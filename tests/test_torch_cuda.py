@@ -8,7 +8,10 @@ LU and the Cholesky end to end on the card, and the entry points' results
 bit-identical whatever TF32 setting the caller chose, K1 in double
 (csrc/rank1_panel_f64.cu) on each of its routes, and the panel's
 pivot-triangle solve (csrc/panel_trsm.cu) against its plain version and
-by its launches per factorization. Without a card every test here skips.
+by its launches per factorization, and one float64 crout factorization at
+the benchmark cell lu.f64.n32768's size: its launches per kernel, its
+phase spans and its reading by the cell's judge. Without a card every
+test here skips.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -19,10 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from conflux_tpu_torch import profiler
 from conflux_tpu_torch.cholesky.single import cholesky
 from conflux_tpu_torch.lu.single import lu_factor
 from conflux_tpu_torch.ops import cuda_gemm, cuda_panel, cuda_scatter, \
-    cuda_trsm
+    cuda_trsm, gemm
 from conflux_tpu_torch.ops.gemm import (
     _matmul_t,
     _schur_update_t,
@@ -1174,3 +1178,50 @@ def test_cholesky_at_4096_solves_pivot_triangles_on_card(card):
         _solves_per_panel(min(v, n - k), 64) for k in range(0, n, v))
     assert torch.equal(L, torch.tril(L))
     assert cholesky_residual_blocked(A, L) <= 1e-6
+
+
+def test_f64_crout_at_the_cells_size(card):
+    """lu.f64.n32768's call (benchmark/configs/lu-f64.json) on one of its
+    inputs: 41 f64 products through sub_dot and none through K2, K1 in
+    double on its grid route for the 240 blocks wider than a cluster and
+    on the cluster route for the last panel's 16, 21 x (9 + 2) + 3
+    pivot-triangle solves; the phase spans tile lu.factor (host and
+    stream time, 99 % or more, as on the float32 path); the cell's judge
+    passes it."""
+    from benchmark import spec, work
+
+    cell = spec.load_cell("lu.f64.n32768")
+    drv, cfg, n = cell.driver, cell.config, cell.traffic["n"]
+    v = cfg["call"]["v"]
+    factor = drv.prepare(cfg, n, card)
+    A = drv.make_input(cfg, n, 2 ** 31 + 21, 0, card)
+    factor(A)                      # builds and warms every kernel
+    torch.cuda.synchronize()
+    counters = ((gemm, "SUB_DOT_F64_PRODUCTS"),
+                (cuda_panel, "LAUNCHES_F64_GRID"),
+                (cuda_panel, "LAUNCHES_F64_CLUSTER"),
+                (cuda_panel, "LAUNCHES_F64_TILE"),
+                (cuda_panel, "LAUNCHES"), (cuda_trsm, "LAUNCHES"),
+                (cuda_gemm, "SUB_MATMUL_BIGK_LAUNCHES"),
+                (cuda_gemm, "SUB_MATMUL_BIGK_BF16_LAUNCHES"))
+    before = [getattr(mod, name) for mod, name in counters]
+    profiler.PC()
+    profiler.enable(True)
+    try:
+        out = factor(A)
+        torch.cuda.synchronize()
+        table = profiler.snapshot()
+    finally:
+        profiler.enable(False)
+        profiler.PC()
+    got = [getattr(mod, name) - b for (mod, name), b in zip(counters, before)]
+    assert len(work.k2_calls("crout", n, v)) == 41
+    assert got == [41, 240, 16, 0, 0, 21 * (9 + 2) + 3, 0, 0]
+    _, host, dev = table["lu.factor"]
+    phases = [table[f"lu.factor/lu.{p}"]
+              for p in ("update", "panel", "solve", "compact")]
+    assert sum(h for _, h, _ in phases) >= 0.99 * host
+    assert sum(d for _, _, d in phases) >= 0.99 * dev
+    assert all(c == -(-n // v) for c, _, _ in phases)
+    got = drv.readings(cfg, A, out)
+    assert all(got[k] <= lim["limit"] for k, lim in cell.limits.items()), got

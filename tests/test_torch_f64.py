@@ -20,6 +20,12 @@ summation order: ~1e-15 apart), and the reference's gate
 ||PA - LU||_F / (N ||A||_F) (or the Cholesky one) < 1e-14, the JAX
 package's own f64 bound (tests/test_f64_mode.py); the port's distributed
 SUMMA gate on every rank to the same bound.
+
+The benchmark's float64 configuration (benchmark/configs/lu-f64.json):
+`lu_factor` in float64, scheme 'auto' and 'crout', against the plain
+reference `benchmark.reference.lu_blocked` in float64 on seeded 5 + U[0,1)
+inputs, the precisions' effect on a float64 factor, and the count of f64
+products `ops.gemm.sub_dot` forms.
 """
 
 import os
@@ -37,6 +43,7 @@ from conflux_tpu_torch.cholesky.single import cholesky
 from conflux_tpu_torch.launch import run_ranks
 from conflux_tpu_torch.lu.csingle import clu_factor, clu_residual
 from conflux_tpu_torch.lu.single import lu_factor
+from conflux_tpu_torch.ops import gemm
 
 F_TOL = 1e-12
 GATE = 1e-14
@@ -258,3 +265,87 @@ def test_25d_f64_matches_jax_x64(jax64, world, i):
     assert _close(got["F"], Fj)
     A = _padded(inp["A"], got["F"].shape)
     assert validation.lu_residual_dense(A, got["F"], got["perm"]) < GATE
+
+
+# -- the benchmark's float64 configuration, against its plain reference -----
+
+# (n, v): crout takes two steps (the cell's v) and four
+F64_SIZES = [(2048, 1536), (512, 128)]
+
+
+def _uniform64(n, seed):
+    """The cell's fill 5 + U[0, 1) in float64, seeded."""
+    from benchmark import inputs
+
+    g = torch.Generator().manual_seed(seed)
+    return inputs.uniform(n, g, "cpu", 5.0, 6.0, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("n,v", F64_SIZES)
+@pytest.mark.parametrize("scheme", ["auto", "crout"])
+def test_lu_factor_f64_matches_the_plain_reference(scheme, n, v):
+    from benchmark import reference, work
+
+    A = _uniform64(n, 2 ** 31 + n)
+    before = gemm.SUB_DOT_F64_PRODUCTS
+    F, p = lu_factor(A, v=v, precision="highest", scheme=scheme)
+    formed = gemm.SUB_DOT_F64_PRODUCTS - before
+    Fr, pr = reference.lu_blocked(A, v)
+    assert F.dtype == torch.float64
+    assert torch.equal(p, pr)
+    # both are backward stable LUs in f64, each within a few roundings
+    # times the growth of A's exact factors; the factors' first-order
+    # perturbation bound turns that into eps kappa_2(A) of max|F|, which
+    # the two stay 100-1000x under (5e-13 - 2e-12 of max|F| on these
+    # inputs, kappa_2 2e5 - 1e7)
+    kappa = float(torch.linalg.cond(A))
+    tol = torch.finfo(torch.float64).eps * kappa * float(Fr.abs().max())
+    assert float((F - Fr).abs().max()) <= tol
+    # crout forms one f64 product per big-K call of its step loop; 'auto'
+    # runs recursive below 2048 rows, which forms none through sub_dot
+    crout = scheme == "crout" or n >= 2048
+    assert formed == (len(work.k2_calls("crout", n, v)) if crout else 0)
+
+
+@pytest.mark.parametrize("n,v", F64_SIZES)
+def test_f64_highest_and_high_give_one_factor(n, v):
+    A = _uniform64(n, 7)
+    F1, p1 = lu_factor(A, v=v, precision="highest", scheme="crout")
+    F2, p2 = lu_factor(A, v=v, precision="high", scheme="crout")
+    assert torch.equal(p1, p2) and torch.equal(F1, F2)
+
+
+@pytest.mark.parametrize("n,v", F64_SIZES)
+def test_f64_bf16_products_fail_the_cells_limit(n, v):
+    """'bf16' rounds the f64 operands of the big products to bf16: its
+    factor reads resid_f above the float64 cell's limit, the program's
+    'highest' factor far below it."""
+    from benchmark import spec
+
+    cell = spec.load_cell("lu.f64.n32768")
+    drv, limit = cell.driver, cell.limits["resid_f"]["limit"]
+    A = _uniform64(n, 8)
+    low = drv.readings(cell.config, A, lu_factor(
+        A, v=v, precision="bf16", scheme="crout"))
+    ieee = drv.readings(cell.config, A, lu_factor(
+        A, v=v, precision="highest", scheme="crout"))
+    assert low["resid_f"] > limit > 1e3 * ieee["resid_f"]
+    assert ieee["max_abs_l"] <= 1.0
+
+
+def test_sub_dot_counts_its_f64_products():
+    g = torch.Generator().manual_seed(9)
+    R, A, B = (torch.rand(s, generator=g, dtype=torch.float64)
+               for s in ((6, 5), (6, 4), (4, 5)))
+    before = gemm.SUB_DOT_F64_PRODUCTS
+    for precision in ("highest", "high"):
+        out = gemm.sub_dot(R, A, B, precision)
+        assert out.dtype == torch.float64
+        assert torch.allclose(out, R - A @ B, rtol=0, atol=1e-15)
+    low = gemm.sub_dot(R, A, B, "bf16")
+    assert gemm.SUB_DOT_F64_PRODUCTS == before + 3
+    ref = R - (A.to(torch.bfloat16).double() @ B.to(torch.bfloat16).double())
+    assert torch.allclose(low, ref, rtol=0, atol=1e-6)
+    # a float32 R is not counted
+    gemm.sub_dot(R.float(), A.float(), B.float(), "highest")
+    assert gemm.SUB_DOT_F64_PRODUCTS == before + 3
