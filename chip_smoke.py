@@ -333,14 +333,30 @@ def bf16_route_launches(route, path: str) -> dict:
     return out
 
 
-def k1_route_launches(route, kernel: str = "rank1_panel") -> dict:
+def k1_clustered(blocks, route, grid_cluster) -> int:
+    """The blocks (w, m, forced) of `blocks` that take K1's grid route in
+    clusters with the two-level exchange, where route(w, m, forced) names
+    a block's route and grid_cluster(w, m) the grid route's cluster size
+    (0: the flat exchange) on this card."""
+    return sum(1 for b in blocks
+               if route(*b) == "grid" and grid_cluster(b[0], b[1]) > 0)
+
+
+def k1_route_launches(route, kernel: str = "rank1_panel",
+                      grid_cluster=None) -> dict:
     """K1's (or, with kernel='rank1_panel_f64', K1 in double's) launches
     per factorization of each path on each route, where route(w, m,
-    forced) names the route a block takes on this card."""
+    forced) names the route a block takes on this card; with
+    grid_cluster (cuda_panel.grid_cluster), also the grid launches in
+    clusters ('rank1_panel grid clustered')."""
     out = {}
     for path in PATH_LAUNCHES:
-        taken = [route(*b) for b in k1_blocks(path)]
+        blocks = k1_blocks(path)
+        taken = [route(*b) for b in blocks]
         out[path] = {f"{kernel} {r}": taken.count(r) for r in K1_ROUTES}
+        if grid_cluster is not None:
+            out[path][f"{kernel} grid clustered"] = k1_clustered(
+                blocks, route, grid_cluster)
     return out
 
 
@@ -571,7 +587,7 @@ def phase_k1():
     # blocks (ops/panel.select_pivots, unforced)
     cases.append((64, N, "unforced", 0, 9500))
     counters = ("LAUNCHES", "LAUNCHES_CLUSTER", "LAUNCHES_GRID",
-                "LAUNCHES_TILE")
+                "LAUNCHES_TILE", "LAUNCHES_GRID_CLUSTERED")
     rows = []
     for w, m, mode, j0, seed in cases:
         rng = np.random.default_rng(seed)
@@ -599,11 +615,16 @@ def phase_k1():
         got = kernel()
         torch.cuda.synchronize()
         route = cuda_panel.route(w, m, forced)
+        clustered = route == "grid" and cuda_panel.grid_cluster(w, m) > 0
         moved = tuple(getattr(cuda_panel, c) - b
                       for c, b in zip(counters, before))
-        if moved != (1,) + tuple(int(route == r) for r in K1_ROUTES):
+        if moved != ((1,) + tuple(int(route == r) for r in K1_ROUTES)
+                     + (int(clustered),)):
             fail(f"K1 [{w}, {m}] {mode}: route counters moved {moved}, "
-                 f"expected the {route} route")
+                 f"expected the {route} route"
+                 + (" in clusters" if clustered else ""))
+        if clustered:
+            route += f", clusters of {cuda_panel.grid_cluster(w, m)}"
         piv_ok = torch.equal(ref[2], got[2].long())
         ok_ok = torch.equal(ref[3], got[3] > 0)
         av_ok = torch.equal(ref[1], got[1])
@@ -1500,6 +1521,8 @@ def _counters():
             # routes, counted apart
             "rank1_panel cluster": (cuda_panel, "LAUNCHES_CLUSTER"),
             "rank1_panel grid": (cuda_panel, "LAUNCHES_GRID"),
+            "rank1_panel grid clustered": (cuda_panel,
+                                           "LAUNCHES_GRID_CLUSTERED"),
             "rank1_panel tile": (cuda_panel, "LAUNCHES_TILE"),
             "rank1_panel_f64 cluster": (cuda_panel, "LAUNCHES_F64_CLUSTER"),
             "rank1_panel_f64 grid": (cuda_panel, "LAUNCHES_F64_GRID"),
@@ -1556,6 +1579,7 @@ def _path_want(path: str) -> dict:
     want = {k: table.get(k, 0) for k in KERNELS}
     want.update({f"{k} {r}": 0 for r in K1_ROUTES
                  for k in ("rank1_panel", "rank1_panel_f64")})
+    want["rank1_panel grid clustered"] = 0
     if want["rank1_panel"]:
         want.update(ROUTE_LAUNCHES[base])
     if want["rank1_panel_f64"]:
@@ -1596,6 +1620,13 @@ def phase_lu_path(smi: str, path: str):
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     _expect(per_run, _path_want(path), f"{path} N={N}")
+    if path == "crout":
+        # the cells' path: every grid-route block in clusters
+        outside = [c["rank1_panel grid"] - c["rank1_panel grid clustered"]
+                   for c in per_run]
+        if any(outside):
+            fail(f"crout N={N}: grid-route launches outside clusters "
+                 f"{outside}")
     med = statistics.median(times)
     res = _check_factor(A, F, perm, f"{path} N={N} high")
     print(f"{path} path N={N} v={V} 'high' on {smi}: times ms "
@@ -1833,6 +1864,8 @@ def _dist_want(program: str, route, n: int, v: int, shape,
     (`_trailing_sub`'s condition), every other kernel's none. float64
     runs every K1 block on K1 in double (route: its route_f64) and no K3;
     the complex LU ('clu') launches no kernel."""
+    from conflux_tpu_torch.ops import cuda_panel
+
     want = {name: 0 for name in _counters()}
     if program == "clu":
         return want
@@ -1847,6 +1880,8 @@ def _dist_want(program: str, route, n: int, v: int, shape,
     taken = [route(*b) for b in blocks]
     for r in K1_ROUTES:
         want[f"rank1_panel {r}"] = taken.count(r)
+    want["rank1_panel grid clustered"] = k1_clustered(
+        blocks, route, cuda_panel.grid_cluster)
     if (program in ("windowed", "fori")
             and (precision == "high" or dtype == "bfloat16")
             and (v // shape[2]) % 128 == 0):
@@ -2264,9 +2299,12 @@ def _loop_want(path: str, n: int, v: int) -> dict:
     path = path.replace(" bf16", "")
     want = {name: 0 for name in _counters()}
     want.update(loop_launches(path, n, v))
-    taken = [cuda_panel.route(*b) for b in k1_blocks(path, n, v)]
+    blocks = k1_blocks(path, n, v)
+    taken = [cuda_panel.route(*b) for b in blocks]
     for r in K1_ROUTES:
         want[f"rank1_panel {r}"] = taken.count(r)
+    want["rank1_panel grid clustered"] = k1_clustered(
+        blocks, cuda_panel.route, cuda_panel.grid_cluster)
     want["schur_update wgmma"] = want["schur_update"]
     want["sub_matmul_bigk wgmma"] = want["sub_matmul_bigk"]
     want.update({f"sub_matmul_bigk_bf16 {r}": 0 for r in BF16_COUNTS})
@@ -2610,7 +2648,8 @@ def main() -> int:
     from conflux_tpu_torch.ops import cuda_panel
 
     phase_build()
-    ROUTE_LAUNCHES.update(k1_route_launches(cuda_panel.route))
+    ROUTE_LAUNCHES.update(k1_route_launches(
+        cuda_panel.route, grid_cluster=cuda_panel.grid_cluster))
     ROUTE_LAUNCHES_F64.update(k1_route_launches(cuda_panel.route_f64,
                                                 "rank1_panel_f64"))
     from conflux_tpu_torch.ops import cuda_gemm

@@ -7,8 +7,16 @@ ctypes on PyTorch's current stream. It has three routes, which the C
 entry picks from (w, m) and the mode and reports back: forced blocks up
 to w = 128 on the tile route (no exchange between CTAs), others on the
 cluster route up to `cluster_max_m(w)` lanes (one thread-block cluster)
-and on the grid route beyond (one persistent CTA per SM). Its source note
-says what bounds it on the H100 and what each route does about that.
+and on the grid route beyond (one persistent CTA per SM). The grid route
+runs in clusters of 8 CTAs with a two-level exchange a column (each
+cluster's candidates meet in its leader's shared memory, the leaders'
+winners in tagged slots in the L2) wherever the card holds the clusters
+at once and their slabs hold the block, and with one grid barrier a
+column otherwise; `grid_cluster(w, m)` names the cluster size a block
+gets, and the C entry reports the one it launched. The tags run on from
+call to call, so the scratch they live in is zeroed once and kept per
+device and stream. Its source note says what bounds it on the H100 and
+what each route does about that.
 
 Float64 blocks take K1 in double (`rank1_block_t_f64`,
 `csrc/rank1_panel_f64.cu`): the same three routes in double, chosen in
@@ -37,7 +45,10 @@ MAX_M = 65536
 # chip_smoke.py resets and reads them
 LAUNCHES = 0
 LAUNCHES_CLUSTER = 0    # one thread-block cluster, pushes between its CTAs
-LAUNCHES_GRID = 0       # one persistent CTA per SM, a grid barrier a column
+LAUNCHES_GRID = 0       # one persistent launch, one CTA per SM
+# ... of which in clusters, with the two-level exchange a column (the
+# others take one grid barrier a column)
+LAUNCHES_GRID_CLUSTERED = 0
 LAUNCHES_TILE = 0       # forced blocks: each CTA eliminates its lanes alone
 
 # launches of the double kernel (rank1_panel_f64.cu), which float64
@@ -52,6 +63,9 @@ ROUTES = {1: "cluster", 2: "grid", 3: "tile"}
 
 _lib = None
 _lib_f64 = None
+# the float32 kernel's scratch per (device, stream): zeroed once and kept,
+# since the clustered grid route's tags run on from call to call
+_scratch: dict = {}
 
 
 def _load() -> ctypes.CDLL:
@@ -61,8 +75,11 @@ def _load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conflux_rank1_panel.argtypes = [p, p, p, p, p, p, p,
                                             i, i, i, i, p,
+                                            ctypes.POINTER(i),
                                             ctypes.POINTER(i)]
         lib.conflux_rank1_panel.restype = i
+        lib.conflux_rank1_panel_grid_cluster.argtypes = [i, i]
+        lib.conflux_rank1_panel_grid_cluster.restype = i
         lib.conflux_rank1_panel_cluster_max_m.argtypes = [i]
         lib.conflux_rank1_panel_cluster_max_m.restype = i
         lib.conflux_rank1_panel_route.argtypes = [i, i, i]
@@ -108,6 +125,25 @@ def route(w: int, m: int, forced: bool) -> str:
     the cluster route up to cluster_max_m(w) lanes and the grid route
     beyond."""
     return ROUTES[_load().conflux_rank1_panel_route(w, m, int(forced))]
+
+
+def grid_cluster(w: int, m: int) -> int:
+    """The cluster size of the grid route's launch for a [w, m] block on
+    the current card: 8 where it takes the two-level exchange, 0 where it
+    keeps the flat one (a card that holds no such clusters, or a block
+    whose slab the clustered CTAs cannot hold)."""
+    return _load().conflux_rank1_panel_grid_cluster(w, m)
+
+
+def _kept_scratch(lib, w: int, dev: torch.device, stream) -> torch.Tensor:
+    """The zeroed scratch kept for (dev, stream), grown to width w."""
+    need = lib.conflux_rank1_panel_scratch_floats(w)
+    key = (dev.index, stream.cuda_stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.float32, device=dev)
+        _scratch[key] = buf
+    return buf
 
 
 def cluster_max_m_f64(w: int) -> int:
@@ -156,7 +192,8 @@ def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
     `finish` is accepted for the caller's sake and changes nothing: the
     straight elimination leaves every pivot lane holding its merged-factor
     values in all modes (unforced callers never read them)."""
-    global LAUNCHES, LAUNCHES_CLUSTER, LAUNCHES_GRID, LAUNCHES_TILE
+    global LAUNCHES, LAUNCHES_CLUSTER, LAUNCHES_GRID, \
+        LAUNCHES_GRID_CLUSTERED, LAUNCHES_TILE
     del finish
     _check_block(Mt, avail_f, forced, j0, torch.float32)
     w, m = Mt.shape
@@ -166,16 +203,15 @@ def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
     avail_o = torch.empty_like(avail_f)
     piv = torch.empty(w, dtype=torch.int32, device=dev)
     ok = torch.empty(w, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.conflux_rank1_panel_scratch_floats(w),
-                          dtype=torch.float32, device=dev)
-    route_taken = ctypes.c_int(-1)
+    route_taken, cluster = ctypes.c_int(-1), ctypes.c_int(0)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
+        scratch = _kept_scratch(lib, w, dev, stream)
         err = lib.conflux_rank1_panel(
             Mt.data_ptr(), avail_f.data_ptr(), out.data_ptr(),
             avail_o.data_ptr(), piv.data_ptr(), ok.data_ptr(),
-            scratch.data_ptr(), w, m, int(forced), j0, stream,
-            ctypes.byref(route_taken))
+            scratch.data_ptr(), w, m, int(forced), j0, stream.cuda_stream,
+            ctypes.byref(route_taken), ctypes.byref(cluster))
     if err != 0:
         raise RuntimeError("rank1_panel launch failed: "
                            + lib.conflux_cuda_error_string(err).decode())
@@ -185,6 +221,7 @@ def rank1_block_t(Mt: torch.Tensor, avail_f: torch.Tensor,
         LAUNCHES_CLUSTER += 1
     elif taken == "grid":
         LAUNCHES_GRID += 1
+        LAUNCHES_GRID_CLUSTERED += int(cluster.value > 1)
     elif taken == "tile":
         LAUNCHES_TILE += 1
     return out, avail_o, piv, ok

@@ -97,6 +97,15 @@ K1_CASES = ((128, 32768, "finish", 0), (128, 17408, "unforced", 0),
             (128, 6656, "finish", 0), (128, 1536, "forced", 1408),
             (64, 1536, "forced", 1472), (128, 1000, "unforced", 0),
             (128, 1536, "forced", 128), (64, 1536, "forced", 64))
+# K1's grid-route blocks of the benchmark's cells and of the other paths
+# (w, m, mode, j0): crout's first block at N = 32768 and 16384, its
+# narrowest grid block (128 lanes past the cluster route's widest), the
+# distributed panels' per rank and the recursive scheme's widest pivot
+# search. Every build's four outputs must be bit-identical to the first
+# build's here.
+K1_GRID_CASES = ((128, 32768, "finish", 0), (128, 16384, "finish", 0),
+                 (128, 2176, "finish", 0), (64, 8192, "unforced", 0),
+                 (64, 32768, "unforced", 0))
 # K1 in double (w, m, mode, j0): chip_smoke.K1_F64_SHAPES, the f64 crout's
 # first block, a mid panel, a last-panels block and the forced pivot-row
 # and Cholesky tiles
@@ -199,31 +208,39 @@ def row_move_fn(lib, scatter: bool):
 def rank1_fn(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     f = lib.conflux_rank1_panel
-    # the present interface; the earlier one, without the route pointer,
-    # ignores it under the C calling convention
-    f.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, ctypes.POINTER(i)]
+    # the present interface; an earlier one, without the route pointer or
+    # the cluster size's, ignores them under the C calling convention (and
+    # leaves the cluster size 0)
+    f.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, ctypes.POINTER(i),
+                  ctypes.POINTER(i)]
     f.restype = i
     lib.conflux_rank1_panel_scratch_floats.argtypes = [i]
     lib.conflux_rank1_panel_scratch_floats.restype = i
-    routes = {}
+    routes, clusters = {}, {}
+    # one zeroed scratch per width, kept across calls as the package's
+    # wrapper keeps its own (the grid route's tagged slots need it)
+    scratches = {}
 
     def run(Mt, av, forced, j0):
         w, m = Mt.shape
         out, avo = torch.empty_like(Mt), torch.empty_like(av)
         piv = torch.empty(w, dtype=torch.int32, device="cuda")
         ok = torch.empty(w, dtype=torch.int32, device="cuda")
-        scratch = torch.empty(lib.conflux_rank1_panel_scratch_floats(w),
-                              device="cuda")
-        route = ctypes.c_int(-1)
+        if w not in scratches:
+            scratches[w] = torch.zeros(
+                lib.conflux_rank1_panel_scratch_floats(w), device="cuda")
+        route, cluster = ctypes.c_int(-1), ctypes.c_int(0)
         err = f(Mt.data_ptr(), av.data_ptr(), out.data_ptr(), avo.data_ptr(),
-                piv.data_ptr(), ok.data_ptr(), scratch.data_ptr(), w, m,
+                piv.data_ptr(), ok.data_ptr(), scratches[w].data_ptr(), w, m,
                 int(forced), j0, torch.cuda.current_stream().cuda_stream,
-                ctypes.byref(route))
+                ctypes.byref(route), ctypes.byref(cluster))
         if err:
             raise RuntimeError(f"conflux_rank1_panel error {err}")
         routes[(w, m)] = route.value
+        clusters[(w, m)] = cluster.value
         return out, avo, piv, ok
     run.routes = routes
+    run.clusters = clusters
     return run
 
 
@@ -653,7 +670,9 @@ def ab_k1(libs, quick, unchecked=False):
     # the cluster route's widest block at w = 128 and 128 lanes more
     edge = cuda_panel.cluster_max_m(128)
     cases += [(128, edge, "finish", 0), (128, edge + 128, "finish", 0)]
+    cases += [c for c in K1_GRID_CASES if c not in cases]
     for w, m, mode, j0 in cases:
+        exact = (w, m, mode, j0) in K1_GRID_CASES
         rng = np.random.default_rng(w + m + j0)
         A = rng.standard_normal((w, m)).astype(np.float32)
         forced = mode == "forced"
@@ -667,9 +686,19 @@ def ab_k1(libs, quick, unchecked=False):
         if mode == "unforced":
             keep[ref[2]] = False
         times = {nm: [] for nm in names}
+        first = None
         for nm in turns(names):
             got = fns[nm](Mt, av, forced, j0)
             torch.cuda.synchronize()
+            if exact and first is None:
+                first = (nm, got)
+            elif exact and not all(torch.equal(a, b)
+                                   for a, b in zip(first[1], got)):
+                msg = (f"K1 {nm} [{w}, {m}] {mode}: not bit-identical to "
+                       f"{first[0]}'s outputs")
+                if not unchecked:
+                    raise SystemExit(msg)
+                print(msg + ", timed all the same (--unchecked)")
             diff = float((ref[0] - got[0])[:, keep].abs().max())
             if not (torch.equal(ref[2], got[2].long())
                     and diff <= 1e-4 * float(ref[0][:, keep].abs().max())):
@@ -683,9 +712,13 @@ def ab_k1(libs, quick, unchecked=False):
             best = min(times[nm])
             route = cuda_panel.ROUTES.get(fns[nm].routes.get((w, m)),
                                           "one route")
+            cluster = fns[nm].clusters.get((w, m), 0)
+            if cluster > 1:
+                route += f", clusters of {cluster}"
+            same = ", bit-identical to the first build" if exact else ""
             print(f"K1 [{w}, {m}] {mode:8s} j0={j0:<5d} {nm:8s} ({route}): "
                   f"{[round(t, 4) for t in times[nm]]} ms, best {best:.4f} "
-                  f"ms ({best / w * 1e3:.2f} us per column); package "
+                  f"ms ({best / w * 1e3:.2f} us per column){same}; package "
                   f"wrapper {t_w:.4f} ms")
         del Mt, av, ref
 

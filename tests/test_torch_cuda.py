@@ -94,13 +94,15 @@ def test_kernel_matches_plain_on_card(card, w, m, mode, j0):
 
 def _k1_counts():
     return (cuda_panel.LAUNCHES, cuda_panel.LAUNCHES_CLUSTER,
-            cuda_panel.LAUNCHES_GRID, cuda_panel.LAUNCHES_TILE)
+            cuda_panel.LAUNCHES_GRID, cuda_panel.LAUNCHES_TILE,
+            cuda_panel.LAUNCHES_GRID_CLUSTERED)
 
 
 def _k1_check(Mt, avail, mode, j0, masked_read=True):
     """One K1 call against its plain version: the route its counters show
     (forced blocks up to w = 128 on the tile route; others on the cluster
-    route up to cluster_max_m(w) lanes, the grid route past it), pivots,
+    route up to cluster_max_m(w) lanes, the grid route past it, counted
+    as clustered where grid_cluster(w, m) names a cluster size), pivots,
     ok and avail equal, the block within a few fp32 roundings
     (NaN where the plain version has NaN). masked_read=False leaves the
     lanes masked on input out of the comparison: callers never read them,
@@ -116,9 +118,10 @@ def _k1_check(Mt, avail, mode, j0, masked_read=True):
     assert route == ("tile" if forced and w <= 128 else
                      "cluster" if m <= cuda_panel.cluster_max_m(w) else
                      "grid")
+    clustered = route == "grid" and cuda_panel.grid_cluster(w, m) > 0
     assert tuple(a - b for a, b in zip(_k1_counts(), before)) == (
         1, int(route == "cluster"), int(route == "grid"),
-        int(route == "tile"))
+        int(route == "tile"), int(clustered))
     assert torch.equal(ref[2], got[2].long())
     assert torch.equal(ref[3], got[3] > 0)
     assert torch.equal(ref[1], got[1])
@@ -174,6 +177,78 @@ def test_k1_nan_ranks_highest_on_both_routes(card, m):
     Mt[0, 777] = np.nan
     _k1_check(torch.from_numpy(Mt).to(card), torch.from_numpy(avail).to(card),
               "unforced", 0, masked_read=False)
+
+
+# K1's grid route in clusters (w, m, mode, j0, case): the narrowest grid
+# blocks (1 and 128 lanes past the cluster route's widest), the LU cells'
+# and the miniapp's widths (33792 lanes: 132 CTAs' worth), the distributed
+# panels' [64, 8192] and the recursive scheme's [64, 32768], a forced
+# block too wide for the tile route (w = 256), the earlier blocks' pivots
+# masked (j0 > 0), and columns with ties, a NaN, and no available lane
+K1_GRID_CASES = [
+    (128, "edge+1", "finish", 0, "plain"),
+    (128, "edge+128", "unforced", 0, "plain"),
+    (128, 4096, "unforced", 0, "plain"),
+    (128, 16384, "finish", 0, "plain"),
+    (128, 32768, "finish", 0, "plain"),
+    (128, 33792, "finish", 0, "plain"),
+    (64, 8192, "unforced", 0, "plain"),
+    (64, 32768, "unforced", 0, "plain"),
+    (256, 4096, "forced", 256, "plain"),
+    (128, 16384, "finish", 1536, "plain"),
+    (128, 32768, "unforced", 0, "ties"),
+    (128, 32768, "unforced", 0, "nan"),
+    (128, 16384, "finish", 0, "few lanes"),
+]
+
+
+@pytest.mark.parametrize("w,m,mode,j0,case", K1_GRID_CASES)
+def test_k1_grid_route_in_clusters(card, w, m, mode, j0, case):
+    # every such block takes the grid route in clusters of 8 on an H100
+    # and matches the plain version as _k1_check holds it
+    if isinstance(m, str):
+        m = cuda_panel.cluster_max_m(w) + int(m.split("+")[1])
+    assert cuda_panel.route(w, m, mode == "forced") == "grid"
+    assert cuda_panel.grid_cluster(w, m) == 8
+    Mt, avail = _block(m, w, mode, seed=m + w + j0, j0=j0)
+    masked_read = True
+    if case == "ties":
+        # column 0's largest |x| in four lanes of different clusters, one
+        # of them negative, and column 5's in two lanes that hold the same
+        # column (so the same updates): the lowest lane wins
+        for lane in (29000, 700, 15000):
+            Mt[0, lane] = 50.0
+        Mt[0, 100] = -50.0
+        Mt[:, 31000] = Mt[:, 9000]
+        Mt[5, [9000, 31000]] = 60.0
+    elif case == "nan":
+        # in column 0, so the plain version's deferred products carry it
+        # into the same lanes as the kernel's updates
+        Mt[0, 20000] = np.nan
+        masked_read = False
+    elif case == "few lanes":
+        # five available lanes for 128 columns: from column 5 on no lane is
+        # available, so the pivot is lane 0 with ok = 0
+        avail[:] = 0.0
+        avail[0, [10, 3000, 9000, 12000, 16000]] = 1.0
+        masked_read = False
+    _k1_check(torch.from_numpy(Mt).to(card), torch.from_numpy(avail).to(card),
+              mode, j0, masked_read=masked_read)
+
+
+def test_k1_grid_route_repeats_bit_for_bit(card):
+    # calls one after another on the kept scratch take fresh tags each
+    # time: the same block gives the same bits, after a call of another
+    # width in between too
+    Mt, avail = _block(32768, 128, "finish", seed=5)
+    Mt = torch.from_numpy(Mt).to(card)
+    avail = torch.from_numpy(avail).to(card)
+    first = cuda_panel.rank1_block_t(Mt, avail, False, 0, True)
+    other = torch.from_numpy(_block(8192, 64, "unforced", seed=6)[0]).to(card)
+    cuda_panel.rank1_block_t(other, torch.ones(1, 8192, device=card))
+    for _ in range(3):
+        again = cuda_panel.rank1_block_t(Mt, avail, False, 0, True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_kernel_wrapper_checks_its_inputs(card):
