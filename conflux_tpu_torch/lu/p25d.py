@@ -72,9 +72,8 @@ from conflux_tpu_torch.layout import (
     local_tile_to_global,
     undistribute,
 )
-from conflux_tpu_torch.lu.single import (_getrf_crout, _getrf_flat,
-                                         _getrf_rec, auto_scheme,
-                                         check_dtype, compute_dtype)
+from conflux_tpu_torch.lu.single import (check_dtype, compute_dtype,
+                                         lu_factor)
 from conflux_tpu_torch.ops.gemm import schur_update
 from conflux_tpu_torch.ops.panel import _lu_select_loop_t, \
     factor_panel_raw, lu_nopivot, select_pivots
@@ -698,22 +697,16 @@ def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
     'x', which changes the tournament's candidate groups: CALU pivots
     depend on the tree by construction; 'full' and 'none' do not.
 
-    A (1, 1, 1) grid with 'tournament', 'gather' or 'full' runs a
-    single-device scheme (every strategy is exact partial pivoting there),
-    whose F and perm have the same layout: the one `lu.single.auto_scheme`
-    names for desc.M rows, or crout under bf16 storage, as `lu_factor`'s
-    'auto' picks."""
+    A (1, 1, 1) grid with 'tournament', 'gather' or 'full' runs
+    `lu.single.lu_factor`'s 'auto' on G, whose desc.M rows are the whole
+    matrix there (every strategy is exact partial pivoting there), and
+    whose F and perm have the same layout."""
     if desc.grid.idle:
         return None, None
     _check(G, desc, pivoting)
     variant = normalize_variant(unroll, desc, "lu")
     if desc.grid.P == 1 and pivoting != "none":
-        if G.dtype == torch.bfloat16:
-            kern = _getrf_crout
-        else:
-            kern = {"recursive": _getrf_rec, "crout": _getrf_crout,
-                    "flat": _getrf_flat}[auto_scheme(desc.M)]
-        return kern(G, desc.v, precision)
+        return lu_factor(G, desc.v, precision)
     if variant == "crout":
         return _local_lu_25d_crout(desc, pivoting, precision, G, rowpart)
     return _local_lu_25d(

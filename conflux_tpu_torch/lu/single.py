@@ -17,16 +17,16 @@ PyTorch counterpart of `conflux_tpu/lu/single.py`. Three schemes:
     in 64-wide K1 blocks, its Schur products are library calls
     (ops/tri.schur_dot).
 
-crout keeps its live rows contiguous by one of three compactions:
-'gather' (the default: re-gather the live rows into a fresh buffer),
-'split' (the raw matrix never moves; only the multipliers compact) and
-'swap' (the live rows stay a prefix of one full-size buffer, refilled by a
-w-row push-up each step). On the card every compaction runs its big-K
-products in 'high' and 'bf16' through K2 (ops/gemm.sub_dot), which beats
-the library's bf16 passes there ('gather' keeps `schur_dot` in 'bf16out',
-whose product the JAX package rounds to bf16); 'split' and 'swap' also
-run their row gathers through K6 and swap's push-up through K5
-(ops/scatter), where 'gather' keeps torch indexing.
+crout's one step loop keeps its live rows contiguous by one of three
+compactions: 'gather' (the default: re-gather the live rows into a fresh
+buffer), 'split' (the raw matrix never moves; only the multipliers
+compact) and 'swap' (the live rows stay a prefix of one full-size buffer,
+refilled by a w-row push-up each step). On the card every compaction runs
+its big-K products in 'high' and 'bf16' through K2 (ops/gemm.sub_dot),
+which beats the library's bf16 passes there ('gather' keeps `schur_dot`
+in 'bf16out', whose product the JAX package rounds to bf16); 'split' and
+'swap' also run their row gathers through K6 and swap's push-up through
+K5 (ops/scatter), where 'gather' keeps torch indexing.
 
 Pivoting lives in the v-wide panel only (masked argmax) and creates no
 data-dependent shape, so the step loops never wait for the device.
@@ -81,21 +81,40 @@ def _partition_now(dead: int, v: int, k: int, w: int, n: int,
     return bool(partition) and dead >= partition * v or k + w >= n
 
 
+def _live_rows(avail: torch.Tensor, live: int) -> torch.Tensor:
+    """The `live` rows where `avail` holds, ascending, without a host
+    sync: dead rows sort last."""
+    m_r = avail.shape[0]
+    rows = torch.arange(m_r, device=avail.device)
+    return torch.sort(torch.where(avail, rows, m_r)).values[:live]
+
+
+def _product_mode(precision: str, dtype: torch.dtype,
+                  compaction: str = "") -> str:
+    """The mode of a driver's big-K products: 'bf16' on bf16 storage, else
+    `precision`, where 'bf16out' on a float32 or float64 working buffer is
+    the one 'bf16' pass, rounded only into the buffer's own type (K2's or
+    K3's 'bf16' on the card). Crout's 'gather' alone keeps 'bf16out' as
+    schur_dot's product rounded to bf16, because the JAX package's
+    'gather' crout rounds that product to bf16."""
+    if dtype == _BF16 or (precision == "bf16out" and compaction != "gather"):
+        return "bf16"
+    return precision
+
+
 def trailing_update(R: torch.Tensor, Mgemm: torch.Tensor, U12: torch.Tensor,
                     c0: int, precision: str):
     """The flat step's one trailing update R[:, c0:] -= Mgemm @ U12 in
     place, in `precision`: bf16 storage's one bf16 pass rounded once into R
     ('bf16out', K3 on the card); IEEE fp32 `torch.mm` for 'highest', or
-    the f64 product of schur_dot on a float64 R; K3 otherwise, where a
-    float32 R's 'bf16out' (one pass rounded into R's own type) is the
-    kernel's 'bf16' pass, as on the TPU."""
+    the f64 product of schur_dot on a float64 R; K3 otherwise, in
+    `_product_mode`, as on the TPU."""
     if R.dtype == _BF16:
         schur_update(R, Mgemm, U12, c0, "bf16out")
     elif precision == "highest" or R.dtype == torch.float64:
         R[:, c0:].sub_(schur_dot(Mgemm, U12, precision))
     else:
-        schur_update(R, Mgemm, U12, c0,
-                     "bf16" if precision == "bf16out" else precision)
+        schur_update(R, Mgemm, U12, c0, _product_mode(precision, R.dtype))
 
 
 def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
@@ -169,10 +188,7 @@ def _getrf_flat(A: torch.Tensor, v: int, precision: str = "highest",
             perm[row0:row0 + d] = origin[done]
             row0 += d
             if live > 0:
-                # sorted live rows without a host sync: dead rows sort last
-                rows = torch.arange(m_r, device=dev)
-                live_idx = torch.sort(torch.where(avail, rows, m_r)).values[
-                    :live]
+                live_idx = _live_rows(avail, live)
                 R = R[live_idx]
                 origin = origin[live_idx]
                 avail = torch.ones(live, dtype=torch.bool, device=dev)
@@ -200,34 +216,61 @@ def compact_prefix(R: torch.Tensor, idx: torch.Tensor,
 
 def _getrf_crout(A: torch.Tensor, v: int, precision: str = "highest",
                  partition: int = 1, consume: bool = False,
-                 chunk: int = 8192):
-    """Blocked crout LU with partial pivoting and 'gather' compaction.
-    Per step k (width w):
+                 chunk: int = 8192, compaction: str = "gather"):
+    """Blocked crout LU with partial pivoting. Per step k (width w):
 
-      * panel update: P = R[:, k:k+w] - R[:, :k] @ F[:k, k:k+w], one
-        [m_r, k] x [k, w] product in `precision` (`ops/gemm.sub_dot`);
-      * masked-argmax panel factorization over the live rows, finishing
-        the pivot lanes (merged=False), so the pivot rows' panel columns
-        come back as their merged L\\U factor;
+      * panel update: P = raw[:, k:k+w] - L @ F[:k, k:k+w], one [m_r, k] x
+        [k, w] product of the live rows' multipliers L in `_product_mode`
+        (`ops/gemm.sub_dot`);
+      * masked-argmax panel factorization over the live rows;
       * the winners' full factor row [L_piv | lu_top | U12] lands in F,
         with U12 = L11^{-1} (raw - L_piv @ F[:k, k+w:]) by one product and
         the blocked TRSM;
-      * the live rows' multipliers are written to the panel columns of R,
-        and every `partition` steps the live rows compact (order kept).
+      * the live rows keep their multipliers and compact (order kept).
 
-    bf16 storage: R and F are bf16; the panel and the winners' raw row are
-    upcast to f32, the big-K products run 'bf16' on the bf16 operands, and
-    the elimination keeps merged=True, so lu_top stays f32 for the TRSM
-    instead of passing through bf16 R. A is not modified, and peak memory
-    is A, F and the shrinking R. With `consume`, A is the working region
-    itself: A is overwritten, and each compaction moves the live rows into
-    its prefix in place, `chunk` rows at a time (`compact_prefix`), so
-    peak memory is A and F. `chunk` applies only with `consume`."""
+    A crout R's trailing columns are never written: they hold raw values
+    until their panel or pivot step. The compactions differ in where the
+    live rows' multipliers and raw columns are kept and how they compact:
+
+      * 'gather': one working region R holds both, and every `partition`
+        steps the live rows re-gather into a fresh R. The panel
+        factorization finishes the pivot lanes (merged=False), so the pivot
+        rows' panel columns come back as their merged L\\U factor. A is not
+        modified, and peak memory is A, F and the shrinking R. With
+        `consume`, A is the working region itself: A is overwritten, and
+        each compaction moves the live rows into its prefix in place,
+        `chunk` rows at a time (`compact_prefix`), so peak memory is A and
+        F.
+      * 'split': the raw matrix A is never written or moved. `origin`, the
+        A row behind each live slot, stays ascending; each panel and the
+        pivot rows' trailing raw values are gathers of A through it (K6 on
+        the card), and only Lbuf [m - k, k], the live rows' multipliers,
+        compacts. Pivot for pivot the same as 'gather' at partition=1:
+        every product and panel operand holds the same values in the same
+        row order.
+      * 'swap': R is one full-size copy of A whose live rows form a PREFIX
+        of length m - k (a Python int per step, so every slice is static);
+        each step moves the <= w live rows parked in the outgoing tail
+        segment into the pivot slots of the kept prefix (`_pushup_pairs`:
+        one w-row gather into a fresh buffer, then one w-row scatter, K6
+        and K5 on the card, so no row is read after it is overwritten):
+        the static-shape form of the reference's first_non_pivot_row
+        push-up, instead of re-gathering the whole live region. Row order
+        inside the prefix differs from 'gather', so fp-tie pivots may
+        legally differ.
+
+    'split' and 'swap' compact every step and refactor the pivot rows
+    (merged=True, `factor_panel`): `partition`, `consume` and `chunk` apply
+    to 'gather' only. bf16 storage: R, Lbuf and F are bf16; the panel and
+    the winners' raw row are upcast to f32, the big-K products run 'bf16'
+    on the bf16 operands, and 'gather' keeps merged=True, so lu_top stays
+    f32 for the TRSM instead of passing through bf16 R."""
     with span("lu.factor"):
-        return _crout_steps(A, v, precision, partition, consume, chunk)
+        return _crout_steps(A, v, precision, partition, consume, chunk,
+                            compaction)
 
 
-def _crout_steps(A, v, precision, partition, consume, chunk):
+def _crout_steps(A, v, precision, partition, consume, chunk, compaction):
     """`_getrf_crout`'s step loop, each step tiled by the phase spans
     lu.update (the panel's big-K product), lu.panel (pivots, multipliers),
     lu.solve (the winners' factor row) and lu.compact."""
@@ -235,53 +278,85 @@ def _crout_steps(A, v, precision, partition, consume, chunk):
     dev = A.device
     bf16s = A.dtype == _BF16
     cdt = compute_dtype(A.dtype)
-    gmode = "bf16" if bf16s else precision
-    R = A                          # working region; replaced, never written, while it is A
+    mode = _product_mode(precision, A.dtype, compaction)
+    gather, split = compaction == "gather", compaction == "split"
+    # working region: 'gather' replaces it and never writes it while it is
+    # A, 'split' never writes it, 'swap' scatters into its own copy
+    R = A.clone() if compaction == "swap" else A
     origin = torch.arange(m, device=dev)
     avail = torch.ones(m, dtype=torch.bool, device=dev)
+    Lbuf = None                    # 'split': [m - k, k] multipliers
     F = torch.zeros((m, n), dtype=A.dtype, device=dev)
     perm = torch.zeros(m, dtype=torch.int64, device=dev)
     dead = 0
     for k in range(0, n, v):
         with span("lu.update"):
             w = min(v, n - k)
-            m_r = R.shape[0]
-            panel = R[:, k:k + w].to(cdt)
+            m_r = R.shape[0] if gather else m - k
+            panel = (gather_rows(R[:, k:k + w], origin) if split
+                     else R[:m_r, k:k + w]).to(cdt)
             if k > 0:
-                panel = sub_dot(panel, R[:, :k], F[:k, k:k + w], gmode)
+                # no name outlives the product: a view kept of R would hold
+                # the old R beside the new one at the next compaction
+                panel = sub_dot(panel, Lbuf if split else R[:m_r, :k],
+                                F[:k, k:k + w], mode)
         with span("lu.panel"):
-            piv, _, M, lu = factor_panel_raw(panel, avail, w, block=128,
-                                             merged=bf16s)
-            # panel columns: multipliers on live rows, the merged factor
-            # on this step's pivot rows (finished lanes; stale under bf16
-            # storage, whose lu_top comes from `lu`), raw values on dead
-            # rows
-            cols = torch.where(avail[:, None], M, panel)
-            avail[piv] = False     # avail is this function's own tensor
-            dead += w
+            if gather:
+                piv, _, M, lu = factor_panel_raw(panel, avail, w, block=128,
+                                                 merged=bf16s)
+                # panel columns: multipliers on live rows, the merged factor
+                # on this step's pivot rows (finished lanes; stale under
+                # bf16 storage, whose lu_top comes from `lu`), raw values on
+                # dead rows
+                cols = torch.where(avail[:, None], M, panel)
+                avail[piv] = False     # avail is this function's own tensor
+                dead += w
+            else:
+                # every row is live; factor_panel refactors the pivot rows
+                # (merged=True) and writes their merged factor into cols
+                piv, _, cols = factor_panel(panel, avail[:m_r], w, block=128)
         with span("lu.solve"):
             # the winners' full factor row, each part written into F in
             # place
-            Rpiv = R[piv]                                  # [w, n] row gather
-            lu_top = cols[piv] if lu is None else lu       # [w, w] merged rows
+            if split:
+                Lpiv = gather_rows(Lbuf, piv) if k > 0 else None    # [w, k]
+            else:
+                Rpiv = R[piv] if gather else gather_rows(R, piv)    # [w, n]
+                Lpiv = Rpiv[:, :k]
+            if gather:
+                lu_top = cols[piv] if lu is None else lu            # [w, w]
+            else:
+                lu_top = gather_rows(cols, piv)
             if k > 0:
-                F[k:k + w, :k] = Rpiv[:, :k]
+                F[k:k + w, :k] = Lpiv
             F[k:k + w, k:k + w] = lu_top
             if k + w < n:
-                rhs = Rpiv[:, k + w:].to(cdt)
+                rhs = (gather_rows(R[:, k + w:], origin[piv]) if split
+                       else Rpiv[:, k + w:]).to(cdt)
                 if k > 0:
-                    rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], gmode)
+                    rhs = sub_dot(rhs, Lpiv, F[:k, k + w:], mode)
                 F[k:k + w, k + w:] = trsm_left_lower_unit(
                     unit_lower(lu_top), rhs, method="invert")
         with span("lu.compact"):
             perm[k:k + w] = origin[piv]
-            live = m_r - dead
-            if _partition_now(dead, v, k, w, n, partition) and live > 0:
-                # sorted live rows without a host sync: dead rows sort
-                # last
-                rows = torch.arange(m_r, device=dev)
-                live_idx = torch.sort(
-                    torch.where(avail, rows, m_r)).values[:live]
+            live = m_r - (dead if gather else w)
+            if split and live > 0:
+                keep = torch.ones(m_r, dtype=torch.bool, device=dev)
+                keep[piv] = False
+                live_idx = _live_rows(keep, live)
+                Mlive = gather_rows(cols, live_idx).to(A.dtype)  # newborn
+                Lbuf = (Mlive if Lbuf is None else
+                        torch.cat([gather_rows(Lbuf, live_idx), Mlive], 1))
+                origin = origin[live_idx]
+            elif compaction == "swap":
+                R[:m_r, k:k + w] = cols
+                if live > 0:       # the last square step keeps no prefix
+                    src, dst = _pushup_pairs(piv, live, w)
+                    scatter_rows(R, gather_rows(R, src), dst)
+                    origin[dst] = origin[src]
+            elif (gather and _partition_now(dead, v, k, w, n, partition)
+                  and live > 0):
+                live_idx = _live_rows(avail, live)
                 # gather first, then write the panel columns into the
                 # compacted rows: the same rows as writing R first, and R
                 # (which may still be the caller's A) is never written
@@ -292,83 +367,15 @@ def _crout_steps(A, v, precision, partition, consume, chunk):
                 origin = origin[live_idx]
                 avail = torch.ones(live, dtype=torch.bool, device=dev)
                 dead = 0
-            elif live > 0:
+            elif gather and live > 0:
                 if R is A and not consume:
                     R = A.clone()  # the first write must not reach A
                 R[:, k:k + w] = cols
     if m > n:
-        # tail: never-pivoted rows hold completed L rows, original order
-        F[n:] = R
-        perm[n:] = origin
-    return F, perm
-
-
-def _getrf_crout_split(A: torch.Tensor, v: int, precision: str = "highest"):
-    """Crout LU with 'split' compaction. A crout R's trailing columns are
-    never written (they hold raw values until their panel or pivot step),
-    so the raw matrix T = A stays where it is, never written or moved, and
-    only the live rows' multipliers compact:
-
-      * origin [m_live]: the T row behind each live slot (ascending);
-      * Lbuf [m_live, k]: the live rows' multiplier columns, compacted
-        every step (the only state that moves);
-      * each panel is one [m_live, w] gather of T's column slice, updated
-        by one big-K product against Lbuf; the pivot rows' trailing raw
-        values are one [w, n-k-w] gather of T.
-
-    Pivot for pivot the same as 'gather' at partition=1: every product and
-    panel operand holds the same values in the same row order. `partition`
-    does not apply (Lbuf compacts every step). bf16 storage: T, Lbuf and F
-    are bf16, the gathered panel and pivot rows are upcast to f32, and the
-    big-K products run 'bf16' on the bf16 operands."""
-    m, n = A.shape
-    dev = A.device
-    cdt = compute_dtype(A.dtype)
-    # the panel is float32 (or f64) here, so 'bf16out' is K2's 'bf16'
-    # pass, as on the flat path; bf16 storage's products are 'bf16'
-    mode = ("bf16" if precision == "bf16out" or A.dtype == _BF16
-            else precision)
-    T = A
-    origin = torch.arange(m, device=dev)
-    everyone = torch.ones(m, dtype=torch.bool, device=dev)
-    Lbuf = None                    # [m_live, k] multipliers
-    F = torch.zeros((m, n), dtype=A.dtype, device=dev)
-    perm = torch.zeros(m, dtype=torch.int64, device=dev)
-    for k in range(0, n, v):
-        w = min(v, n - k)
-        m_live = m - k
-        panel = gather_rows(T[:, k:k + w], origin).to(cdt)     # [m_live, w]
-        if k > 0:
-            panel = sub_dot(panel, Lbuf, F[:k, k:k + w], mode)
-        piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
-        lu_top = gather_rows(M, piv)                           # [w, w]
-        F[k:k + w, k:k + w] = lu_top
-        if k > 0:
-            Lpiv = gather_rows(Lbuf, piv)                      # [w, k]
-            F[k:k + w, :k] = Lpiv
-        if k + w < n:
-            rhs = gather_rows(T[:, k + w:], origin[piv]).to(cdt)
-            if k > 0:
-                rhs = sub_dot(rhs, Lpiv, F[:k, k + w:], mode)
-            F[k:k + w, k + w:] = trsm_left_lower_unit(
-                unit_lower(lu_top), rhs, method="invert")
-        perm[k:k + w] = origin[piv]
-        if m_live > w:
-            # sorted live rows without a host sync: pivot rows sort last
-            keep = torch.ones(m_live, dtype=torch.bool, device=dev)
-            keep[piv] = False
-            rows = torch.arange(m_live, device=dev)
-            live_idx = torch.sort(torch.where(keep, rows, m_live)).values[
-                :m_live - w]
-            Mlive = gather_rows(M, live_idx).to(A.dtype)       # newborn
-            Lbuf = (Mlive if Lbuf is None else
-                    torch.cat([gather_rows(Lbuf, live_idx), Mlive], dim=1))
-            origin = origin[live_idx]
-    if m > n:
-        # tail: never-pivoted rows hold completed L rows (all n multiplier
-        # columns live in Lbuf), original relative order
-        F[n:] = Lbuf
-        perm[n:] = origin
+        # tail: never-pivoted rows hold completed L rows, in the order
+        # perm records (the input's, but for 'swap')
+        F[n:] = Lbuf if split else R[:m - n]
+        perm[n:] = origin[:m - n]
     return F, perm
 
 
@@ -397,63 +404,6 @@ def _pushup_pairs(piv: torch.Tensor, m_live2: int, w: int):
     tail_piv = torch.sort(torch.where(piv >= m_live2, piv, -1)).values
     return (torch.where(movers < end, movers, tail_piv),
             torch.where(slots < end, slots, tail_piv))
-
-
-def _getrf_crout_swap(A: torch.Tensor, v: int, precision: str = "highest"):
-    """Crout LU with 'swap' (push-up) compaction. R is one full-size
-    [m, n] copy of A whose live rows form a PREFIX of length m - k (a
-    Python int per step, so every slice is static); each step moves the
-    <= w live rows parked in the outgoing tail segment into the pivot
-    slots of the kept prefix (`_pushup_pairs`: one w-row gather into a
-    fresh buffer, then one w-row scatter, so no row is read after it is
-    overwritten): the static-shape form of the reference's
-    first_non_pivot_row push-up, instead of re-gathering the whole live
-    region. Row order inside the prefix differs from 'gather', so fp-tie
-    pivots may legally differ. `partition` does not apply (the frontier
-    shrinks every step). A is not modified: the scatter writes R in
-    place, and R starts as one copy of A. bf16 storage as in 'split'."""
-    m, n = A.shape
-    dev = A.device
-    cdt = compute_dtype(A.dtype)
-    mode = ("bf16" if precision == "bf16out" or A.dtype == _BF16
-            else precision)                                  # as 'split'
-    R = A.clone()
-    origin = torch.arange(m, device=dev)
-    everyone = torch.ones(m, dtype=torch.bool, device=dev)
-    F = torch.zeros((m, n), dtype=A.dtype, device=dev)
-    perm = torch.zeros(m, dtype=torch.int64, device=dev)
-    for k in range(0, n, v):
-        w = min(v, n - k)
-        m_live = m - k
-        panel = R[:m_live, k:k + w].to(cdt)
-        if k > 0:
-            panel = sub_dot(panel, R[:m_live, :k], F[:k, k:k + w], mode)
-        piv, _, M = factor_panel(panel, everyone[:m_live], w, block=128)
-        lu_top = gather_rows(M, piv)                           # [w, w]
-        R[:m_live, k:k + w] = M
-        # the winners' full factor row [L_piv | lu_top | U12], as 'gather'
-        Rpiv = gather_rows(R, piv)                             # [w, n]
-        if k > 0:
-            F[k:k + w, :k] = Rpiv[:, :k]
-        F[k:k + w, k:k + w] = lu_top
-        if k + w < n:
-            rhs = Rpiv[:, k + w:].to(cdt)
-            if k > 0:
-                rhs = sub_dot(rhs, Rpiv[:, :k], F[:k, k + w:], mode)
-            F[k:k + w, k + w:] = trsm_left_lower_unit(
-                unit_lower(lu_top), rhs, method="invert")
-        perm[k:k + w] = origin[piv]
-        m_live2 = m_live - w
-        if m_live2 > 0:            # the last square step keeps no prefix
-            src, dst = _pushup_pairs(piv, m_live2, w)
-            scatter_rows(R, gather_rows(R, src), dst)
-            origin[dst] = origin[src]
-    if m > n:
-        # the live prefix holds completed L rows; their origin order is
-        # not the input order after the swaps, which perm records
-        F[n:] = R[:m - n]
-        perm[n:] = origin[:m - n]
-    return F, perm
 
 
 def _getrf_base(A: torch.Tensor, n: int):
@@ -542,11 +492,8 @@ def lu_factor(A: torch.Tensor, v: int = 128, precision: str = "highest",
         return _getrf_flat(A, v, precision, partition=partition)
     if scheme == "recursive":
         return _getrf_rec(A, v, precision)
-    if compaction == "split":
-        return _getrf_crout_split(A, v, precision)
-    if compaction == "swap":
-        return _getrf_crout_swap(A, v, precision)
-    return _getrf_crout(A, v, precision, partition=partition)
+    return _getrf_crout(A, v, precision, partition=partition,
+                        compaction=compaction)
 
 
 # auto_scheme's threshold: crout from this many rows on, recursive below

@@ -49,13 +49,20 @@ def test_auto_scheme_threshold(at, want):
 
 
 def _spy(monkeypatch, module, ran):
-    """Record which scheme driver of `module` each call reaches."""
+    """Record which scheme driver of `module` each call reaches; the
+    recursive driver's calls of itself are not calls of their own."""
+    depth = [0]
     for scheme, name in DRIVERS.items():
         inner = getattr(module, name)
 
         def spy(*args, _inner=inner, _scheme=scheme, **kwargs):
-            ran.append(_scheme)
-            return _inner(*args, **kwargs)
+            if not depth[0]:
+                ran.append(_scheme)
+            depth[0] += 1
+            try:
+                return _inner(*args, **kwargs)
+            finally:
+                depth[0] -= 1
 
         monkeypatch.setattr(module, name, spy)
 
@@ -95,7 +102,7 @@ def test_one_rank_lu_25d_runs_the_auto_scheme(rng, monkeypatch, pivoting, m,
     monkeypatch.setattr(tsingle, "CROUT_FROM_M", PATCHED)
     A = rng.standard_normal((m, m)).astype(np.float32)
     ran = []
-    _spy(monkeypatch, p25d, ran)
+    _spy(monkeypatch, tsingle, ran)
     F, perm = p25d.plu(A, make_grid((1, 1, 1), device="cpu"), v=8,
                        pivoting=pivoting, precision="high")
     assert ran == [scheme]
@@ -109,7 +116,7 @@ def test_one_rank_lu_25d_bf16_storage_runs_crout(rng, monkeypatch):
     A = torch.from_numpy(5.0 + rng.random((48, 48))).to(torch.bfloat16)
     desc = BlockCyclic.create(48, 48, 8, make_grid((1, 1, 1), device="cpu"))
     ran = []
-    _spy(monkeypatch, p25d, ran)
+    _spy(monkeypatch, tsingle, ran)
     F, perm = p25d.lu_25d(distribute(A, desc), desc, "tournament", "high")
     assert ran == ["crout"]
     Fc, pc = tsingle.lu_factor(A, v=8, precision="high", scheme="crout")
@@ -120,7 +127,7 @@ def test_one_rank_lu_25d_none_runs_the_rank_program(rng, monkeypatch):
     A = (rng.standard_normal((48, 48)) + 48 * np.eye(48)).astype(np.float32)
     desc = BlockCyclic.create(48, 48, 8, make_grid((1, 1, 1), device="cpu"))
     ran = []
-    _spy(monkeypatch, p25d, ran)
+    _spy(monkeypatch, tsingle, ran)
     F, perm = p25d.lu_25d(distribute(A, desc), desc, "none", "highest")
     assert ran == []
     assert validation.lu_residual_dense(A, F.numpy(), perm.numpy()) <= GATE

@@ -1,6 +1,7 @@
 """The phase spans of the single-card step loops (`profiler.span` in
-`lu.single._getrf_crout` and `cholesky.single.potrf_inplace`), the span
-table, and the benchmark's reader of the device idle filed under them
+`lu.single._getrf_crout`, every compaction, and
+`cholesky.single.potrf_inplace`), the span table, and the benchmark's
+reader of the device idle filed under them
 (benchmark/metrics/step_py_idle_ms.py).
 
     python -m pytest tests/test_torch_spans.py -q
@@ -28,6 +29,8 @@ N, V = 128, 32
 STEPS = N // V
 PHASES = {"lu": ("update", "panel", "solve", "compact"),
           "chol": ("update", "panel", "solve")}
+# crout's other compactions record the spans of 'gather' ("lu")
+COMPACTIONS = ("split", "swap")
 
 
 def _input(family: str) -> torch.Tensor:
@@ -39,9 +42,10 @@ def _input(family: str) -> torch.Tensor:
 
 
 def _factor(family: str, A: torch.Tensor):
-    if family == "lu":
-        return lu_factor(A, v=V, precision="highest", scheme="crout")
-    return (cholesky(A, v=V, precision="highest", scheme="flat"),)
+    if family == "chol":
+        return (cholesky(A, v=V, precision="highest", scheme="flat"),)
+    return lu_factor(A, v=V, precision="highest", scheme="crout",
+                     compaction="gather" if family == "lu" else family)
 
 
 def _expected(family: str) -> dict:
@@ -60,15 +64,16 @@ def clean_profiler():
     profiler.PC()
 
 
-@pytest.mark.parametrize("family", ["lu", "chol"])
+@pytest.mark.parametrize("family", ["lu", "chol", *COMPACTIONS])
 def test_enabled_spans_fill_the_table(family, clean_profiler):
     A = _input(family)
     profiler.enable(True)
     _factor(family, A)
     got = profiler.snapshot()
-    entry = f"{family}.factor"
+    spans = "lu" if family in COMPACTIONS else family
+    entry = f"{spans}.factor"
     want = {entry: 1}
-    want.update({f"{entry}/{family}.{p}": STEPS for p in PHASES[family]})
+    want.update({f"{entry}/{spans}.{p}": STEPS for p in PHASES[spans]})
     assert {path: c for path, (c, _, _) in got.items()} == want
     # phases tile the steps inside the entry span: their host time sums
     # to no more than the entry span's
@@ -127,7 +132,7 @@ def test_spans_on_the_card(family, clean_profiler):
     assert all(d is not None and d > 0 for _, _, d in got.values())
 
 
-@pytest.mark.parametrize("family", ["lu", "chol"])
+@pytest.mark.parametrize("family", ["lu", "chol", *COMPACTIONS])
 def test_spans_leave_the_outputs_bit_identical(family, clean_profiler):
     A = _input(family)
     off = _factor(family, A)
