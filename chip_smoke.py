@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: build (or load) every kernel from csrc/, one nvcc per source,
      started together: K1, the rank-1 panel kernel (rank1_panel.cu), and
      K1 in double (rank1_panel_f64.cu); the panel's pivot-triangle solve
-     (panel_trsm.cu); K3, the fused trailing update
+     (panel_trsm.cu) and its pivot-lane gather and scatter
+     (lane_move.cu); K3, the fused trailing update
      (schur_update.cu); K2, the big-K R - A@B (bigk_gemm.cu) with its
      bf16-operand entry (its kernels in wgmma_bf16.cuh), and K4, the
      plain GEMM (bigk_gemm.cu); K5 and K6, the row
@@ -36,7 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      ([384, 128], [1024, 512]), Cholesky's block update ([448, 64]) and a
      ragged [100, 96], each call checked by its launch counter and timed
      beside the plain version and torch.linalg.solve_triangular (cuBLAS's
-     trsm);
+     trsm); then the panel's pivot-lane gather and scatter (lane_move.cu)
+     against their plain versions, bit for bit, in f32 and f64 at crout's
+     update shapes with m = 32768, each call checked by its launch counter
+     and timed beside the one-hot product it replaces;
   4. K3 vs plain: the wgmma kernel's SASS must hold HGMMA, UTMALDG and
      SYNCS instructions; then K3 against its plain PyTorch version on the
      same CUDA inputs, in 'high', 'bf16' and 'bf16out', at the flat LU's
@@ -419,6 +423,11 @@ K1_F64_TOL = 1e-12
 # a ragged one
 TRSM_SHAPES = ((384, 128, False), (1024, 512, True), (448, 64, False),
                (100, 96, False))
+# the panel's pivot-lane moves (rows, n) at crout's first panel, m = N
+# lanes: a block update's gather of rows b0..g1 at its widest, a group
+# update's gather of rows g0..w and its scatter into the 1024 rows past
+# the group
+LANE_SHAPES = ((512, 128), (1536, 512), (1024, 512))
 # K2's bf16-operand entry (tag, m, k, n, B transposed): the bf16 crout
 # path's first and last panel updates, and the bf16 Cholesky path's (B the
 # transposed view F[k:k+w, :k].T, read in place)
@@ -531,17 +540,18 @@ def phase_device():
 
 
 SOURCES = ("rank1_panel", "schur_update", "bigk_gemm", "row_move",
-           "rank1_panel_f64", "panel_trsm")
+           "rank1_panel_f64", "panel_trsm", "lane_move")
 
 
 def phase_build():
-    from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_panel, \
-        cuda_scatter, cuda_trsm
+    from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_lanes, \
+        cuda_panel, cuda_scatter, cuda_trsm
 
     t0 = time.perf_counter()
     _build.build(SOURCES)
     cuda_panel._load()
     cuda_trsm._load()
+    cuda_lanes._load()
     cuda_panel._load_f64()
     cuda_gemm._load()
     cuda_gemm._load_bigk()
@@ -718,6 +728,60 @@ def phase_trsm():
                   f"{t_l:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
             if not diff <= 2 * scale:
                 fail(f"{tag}: max|diff| {diff} > 2 * {scale}")
+
+
+def phase_lanes():
+    """The panel's pivot-lane gather and scatter against their plain
+    versions on copies of the same inputs, bit for bit, in f32 and f64, at
+    LANE_SHAPES with m = N lanes, a third of the entries not ok (their
+    lanes repeating ok ones); each call checked by its launch counter and
+    timed beside the one-hot product it replaces."""
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_lanes
+    from conflux_tpu_torch.ops.panel import _gather_lanes, _scatter_lanes
+    from conflux_tpu_torch.timing import per_call_ms
+
+    for rows, n in LANE_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            rng = np.random.default_rng(rows + n)
+            T = torch.from_numpy(rng.standard_normal((rows, N))).to("cuda",
+                                                                    dtype)
+            lanes = rng.permutation(N)[:n]
+            ok = np.arange(n) < 2 * n // 3
+            lanes[~ok] = lanes[rng.integers(0, n, int((~ok).sum()))]
+            piv = torch.from_numpy(lanes).cuda()
+            okc = torch.from_numpy(ok).cuda()
+            vals = torch.from_numpy(rng.standard_normal((rows, n))).to(
+                "cuda", dtype)
+            before = (cuda_lanes.GATHER_LAUNCHES, cuda_lanes.SCATTER_LAUNCHES)
+            got = _gather_lanes(T, piv, okc)
+            dst = T.clone()
+            _scatter_lanes(dst, piv, okc, vals)
+            torch.cuda.synchronize()
+            moved = (cuda_lanes.GATHER_LAUNCHES - before[0],
+                     cuda_lanes.SCATTER_LAUNCHES - before[1])
+            tag = f"lane moves [{rows}, {n}] of m = {N} {str(dtype)[6:]}"
+            if moved != (1, 1):
+                fail(f"{tag}: launch counters moved {moved}")
+            Tc, pc, oc = T.cpu(), piv.cpu(), okc.cpu()
+            want = Tc.clone()
+            _scatter_lanes(want, pc, oc, vals.cpu())
+            if not (torch.equal(got.cpu(), _gather_lanes(Tc, pc, oc))
+                    and torch.equal(dst.cpu(), want)):
+                fail(f"{tag}: the kernels differ from the plain versions")
+            onehot = ((torch.arange(N, device="cuda")[None, :] == piv[:, None])
+                      & okc[:, None]).to(dtype)
+            t_g = per_call_ms(cuda_lanes.gather_lanes, T, piv, okc)
+            t_s = per_call_ms(cuda_lanes.scatter_lanes_, dst, piv, okc, vals)
+            t_o = per_call_ms(torch.mm, T, onehot.T)
+            size = torch.finfo(dtype).bits // 8
+            bound = _bound(0.0, size * 2.0 * rows * n, 1.0)
+            print(f"{tag}: bit-equal to the plain versions, gather "
+                  f"{t_g:.4f} ms, scatter {t_s:.4f} ms (per call, the "
+                  f"wrapper's host work included), one-hot product "
+                  f"T @ onehot.T {t_o:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})")
 
 
 def phase_k1_f64():
@@ -2672,6 +2736,7 @@ def main() -> int:
     k1_rows = phase_k1()
     k1f64_rows = phase_k1_f64()
     phase_trsm()
+    phase_lanes()
     medium_bf16 = phase_medium_probe()
     k3_rows = phase_k3(medium_bf16)
     k2_rows = phase_k2(medium_bf16)

@@ -3,9 +3,9 @@
 // X = B L^{-T} for B [r, n] and L the unit lower triangle of the pivot
 // rows' merged factors: the U12 of ops/panel._lu_select_loop_t's block and
 // group updates (each row x of X solves x L^T = b). L's strict lower part
-// is read in place from LT = L^T, row-major [n, n]: the one-hot product
-// Bt @ onehot.T as the panel forms it (lu column-major). LT's diagonal and
-// lower part, L's diagonal and upper part, are never read.
+// is read in place from LT = L^T, row-major [n, n]: the factored block's
+// pivot lanes as the panel gathers them (lu column-major). LT's diagonal
+// and lower part, L's diagonal and upper part, are never read.
 //
 // Replaces no TPU kernel. The JAX package solves these triangles with
 // 32-wide explicit inverses and matrix products

@@ -46,8 +46,8 @@ def _load() -> ctypes.CDLL:
 
 def solve_unit_lower_t(B: torch.Tensor, lu: torch.Tensor) -> torch.Tensor:
     """X = B L^{-T} on the card, L = tril(lu, -1) + I: B [r, n] row-major,
-    lu [n, n] column-major (lu.T contiguous, as the panel's one-hot product
-    leaves it), read in place; lu's diagonal and upper part are never read.
+    lu [n, n] column-major (lu.T contiguous, as the panel's pivot-lane
+    gather leaves it), read in place; lu's diagonal and upper part are never read.
     float32 (IEEE fused multiply-adds, no TF32) or float64, 1 <= n <=
     MAX_N, r >= 1; raises on anything else or on a failed launch."""
     global LAUNCHES

@@ -8,14 +8,18 @@ The panel lives TRANSPOSED [n, m] for the whole factorization (panel
 columns as rows, matrix rows as lanes). Per `_BLOCK`-wide column block
 the rank-1 eliminations run in K1 (ops/cuda_panel.py, CUDA tensors) or in
 its plain version `_rank1_block_t` (CPU tensors); between blocks the
-trailing panel columns are updated by matrix products in transposed space
-(pivot-lane extraction by a one-hot product, the pivot triangle's solve,
-then the multiplier outer product). The triangle's solve runs in the
-hand-written kernel of ops/cuda_trsm.py on CUDA tensors and in its plain
-version `_pivot_solve_plain` on CPU tensors (`_pivot_solve_t`). Every
-product here forms multipliers or factors, so every one runs in IEEE
-fp32, or in f64 on a float64 panel (whose blocks take K1 in double on the
-card).
+trailing panel columns are updated in transposed space: the block's pivot
+lanes gathered by index, the pivot triangle's solve, the multiplier outer
+product, and, where the elimination finishes its pivot lanes, their U12
+scattered back by index. The lane moves run in the hand-written kernels
+of ops/cuda_lanes.py on CUDA tensors and in their plain versions
+(`_gather_lanes`, `_scatter_lanes`) on CPU tensors; they move values
+exactly, where the JAX package forms them by one-hot products over all m
+lanes. The triangle's solve runs in the hand-written kernel of
+ops/cuda_trsm.py on CUDA tensors and in its plain version
+`_pivot_solve_plain` on CPU tensors (`_pivot_solve_t`). Every product
+here forms multipliers or factors, so every one runs in IEEE fp32, or in
+f64 on a float64 panel (whose blocks take K1 in double on the card).
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ _BLOCK = 64
 # touch only their group's rows; rows beyond the group get one K=_GROUP
 # update per group boundary
 _GROUP = 512
+
+# pivot-lane gathers and scatters issued by `_lu_select_loop_t` in this
+# process (either version); the tests read it
+LANE_MOVES = 0
 
 
 def _rank1_block_t(Mt: torch.Tensor, availf: torch.Tensor, j0: int,
@@ -147,7 +155,7 @@ def _pivot_solve_plain(Tpiv_t: torch.Tensor, lu: torch.Tensor,
 def _pivot_solve_t(Tpiv_t: torch.Tensor, lu: torch.Tensor,
                    group: bool) -> torch.Tensor:
     """U12t = Tpiv_t L^{-T} with L the unit lower triangle of the pivot
-    rows' merged factors lu [n, n] (column-major, as the one-hot product
+    rows' merged factors lu [n, n] (column-major, as the pivot-lane gather
     leaves it). The hand-written kernel (ops/cuda_trsm.py) for CUDA
     tensors, whatever `group`; the plain version for CPU tensors; anything
     else raises. There is no fallback between the two."""
@@ -160,6 +168,66 @@ def _pivot_solve_t(Tpiv_t: torch.Tensor, lu: torch.Tensor,
     raise ValueError(f"no pivot-triangle solve for device {lu.device}")
 
 
+def _gather_lanes(src: torch.Tensor, piv: torch.Tensor,
+                  ok: torch.Tensor) -> torch.Tensor:
+    """out[r, j] = src[r, piv[j]] where ok[j], else 0: a fresh contiguous
+    [rows, n] tensor. The hand-written kernel (ops/cuda_lanes.py) for CUDA
+    tensors, the plain version for CPU tensors; anything else raises."""
+    global LANE_MOVES
+    LANE_MOVES += 1
+    if src.is_cuda:
+        from conflux_tpu_torch.ops import cuda_lanes
+
+        return cuda_lanes.gather_lanes(src, piv, ok)
+    if src.device.type == "cpu":
+        return torch.where(ok, src.index_select(1, piv), 0.0)
+    raise ValueError(f"no pivot-lane gather for device {src.device}")
+
+
+def _scatter_lanes(dst: torch.Tensor, piv: torch.Tensor, ok: torch.Tensor,
+                   src: torch.Tensor) -> None:
+    """dst[r, piv[j]] = src[r, j] for every j with ok[j], in place; an
+    entry whose ok is False moves nothing (its lane may repeat another's).
+    The hand-written kernel for CUDA tensors, the plain version for CPU
+    tensors; anything else raises."""
+    global LANE_MOVES
+    LANE_MOVES += 1
+    if dst.is_cuda:
+        from conflux_tpu_torch.ops import cuda_lanes
+
+        cuda_lanes.scatter_lanes_(dst, piv, ok, src)
+    elif dst.device.type == "cpu":
+        dst.index_copy_(1, piv[ok], src[:, ok])
+    else:
+        raise ValueError(f"no pivot-lane scatter for device {dst.device}")
+
+
+def _deferred_update_t(Pt: torch.Tensor, piv: torch.Tensor,
+                       ok: torch.Tensor, availf: torch.Tensor, r0: int,
+                       r1: int, r2: int, forced: bool, finish: bool,
+                       group: bool) -> None:
+    """Update Pt's rows [r1, r2) in place by its factored rows [r0, r1),
+    whose pivot lanes are piv[r0:r1] (ok: selected). The pivot lanes of
+    rows [r0, r2) are read in one move (entries not ok read 0); forced
+    pivots are the lanes r0..r1 themselves, so a slice serves there."""
+    w = r1 - r0
+    piv, ok = piv[r0:r1], ok[r0:r1]
+    if forced:
+        G = torch.where(ok, Pt[r0:r2, r0:r1], 0.0)
+    else:
+        G = _gather_lanes(Pt[r0:r2], piv, ok)                     # [r2-r0, w]
+    # G[:w].T is the pivot rows' merged factor, column-major
+    U12t = _pivot_solve_t(G[w:], G[:w].T, group)
+    Lmul_t = torch.where(availf > 0, Pt[r0:r1], 0.0)              # [w, m]
+    T_new = Pt[r1:r2] - U12t @ Lmul_t
+    if forced:
+        # keep the forced pivot lanes exact
+        T_new[:, r0:r1] = U12t
+    elif finish:
+        _scatter_lanes(T_new, piv, ok, U12t)
+    Pt[r1:r2] = T_new
+
+
 def _lu_select_loop_t(panel: torch.Tensor, active: torch.Tensor, npiv: int,
                       forced: bool, block: int | None = None,
                       finish: bool = False):
@@ -169,7 +237,7 @@ def _lu_select_loop_t(panel: torch.Tensor, active: torch.Tensor, npiv: int,
     non-pivot lanes hold their multipliers. With finish=False pivot lanes
     may be stale beyond their own block; with finish=True (or forced) Pt's
     pivot lane p_j holds the full merged-factor row lu[j, :]."""
-    m, n = panel.shape
+    n = panel.shape[1]
     if n != npiv:
         raise ValueError(f"panel width {n} must equal npiv {npiv}")
     block = block or _BLOCK
@@ -181,53 +249,24 @@ def _lu_select_loop_t(panel: torch.Tensor, active: torch.Tensor, npiv: int,
     Pt = panel.T.contiguous()
     piv = torch.zeros(npiv, dtype=torch.int64, device=dev)
     ok = torch.zeros(npiv, dtype=torch.bool, device=dev)
-    lanes = torch.arange(m, device=dev)
-
-    def onehot_of(pivw, okb):
-        return ((lanes[None, :] == pivw[:, None]) & okb[:, None]).to(dt)
 
     for g0 in range(0, npiv, group):
         g1 = min(g0 + group, npiv)
         for b0 in range(g0, g1, block):
             b1 = min(b0 + block, g1)
-            Bt2, availf2, pivw, okb = _rank1_dispatch(
+            Bt2, availf, pivw, okb = _rank1_dispatch(
                 Pt[b0:b1], availf, b0, forced, finish)
             piv[b0:b1] = pivw
             ok[b0:b1] = okb
             Pt[b0:b1] = Bt2
-            availf = availf2
             if b1 < g1:
                 # inner deferred update: only the group's remaining rows
-                T_t = Pt[b1:g1]
-                onehot = onehot_of(pivw, okb)                     # [bw, m]
-                Tpiv_t = T_t @ onehot.T                           # [rest, bw]
-                lu_blk = (Bt2 @ onehot.T).T                       # [bw, bw]
-                U12t = _pivot_solve_t(Tpiv_t, lu_blk, group=False)
-                Lmul_t = torch.where(availf2 > 0, Bt2, 0.0)       # [bw, m]
-                T_new = T_t - U12t @ Lmul_t
-                if forced:
-                    # forced pivots are lanes b0..b1: keep their rows exact
-                    T_new[:, b0:b1] = U12t
-                elif finish:
-                    anyp = onehot.sum(dim=0, keepdim=True) > 0
-                    T_new = torch.where(anyp, U12t @ onehot, T_new)
-                Pt[b1:g1] = T_new
+                _deferred_update_t(Pt, piv, ok, availf, b0, b1, g1, forced,
+                                   finish, group=False)
         if g1 < npiv:
             # outer K = g1-g0 update of everything beyond the group
-            onehot_g = onehot_of(piv[g0:g1], ok[g0:g1])           # [gw, m]
-            Bt_g = Pt[g0:g1]
-            T_t = Pt[g1:npiv]
-            Tpiv_t = T_t @ onehot_g.T                             # [rest, gw]
-            lu_g = (Bt_g @ onehot_g.T).T                          # [gw, gw]
-            U12t = _pivot_solve_t(Tpiv_t, lu_g, group=True)
-            Lmul_g = torch.where(availf > 0, Bt_g, 0.0)           # [gw, m]
-            T_new = T_t - U12t @ Lmul_g
-            if forced:
-                T_new[:, g0:g1] = U12t
-            elif finish:
-                anyp = onehot_g.sum(dim=0, keepdim=True) > 0
-                T_new = torch.where(anyp, U12t @ onehot_g, T_new)
-            Pt[g1:npiv] = T_new
+            _deferred_update_t(Pt, piv, ok, availf, g0, g1, npiv, forced,
+                               finish, group=True)
     return piv, ok, Pt
 
 

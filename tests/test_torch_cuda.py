@@ -6,9 +6,12 @@ ops/tri._split_hi_lo bit for bit, the routes of K1, K2, K3, K4 and K5/K6
 by their launch counters, the crout LU (all three compactions), the flat
 LU and the Cholesky end to end on the card, and the entry points' results
 bit-identical whatever TF32 setting the caller chose, K1 in double
-(csrc/rank1_panel_f64.cu) on each of its routes, and the panel's
+(csrc/rank1_panel_f64.cu) on each of its routes, the panel's
 pivot-triangle solve (csrc/panel_trsm.cu) against its plain version and
-by its launches per factorization, and one float64 crout factorization at
+by its launches per factorization, the panel's pivot-lane gather and
+scatter (csrc/lane_move.cu) against their plain versions and the panel
+loop bit for bit against its one-hot formulation
+(tests/torch_onehot_panel.py), and one float64 crout factorization at
 the benchmark cell lu.f64.n32768's size: its launches per kernel, its
 phase spans and its reading by the cell's judge. Without a card every
 test here skips.
@@ -21,23 +24,28 @@ This file imports no jax, so it also runs where jax is not installed:
 import numpy as np
 import pytest
 import torch
+import torch_onehot_panel
 
 from conflux_tpu_torch import profiler
 from conflux_tpu_torch.cholesky.single import cholesky
 from conflux_tpu_torch.lu.single import lu_factor
-from conflux_tpu_torch.ops import cuda_gemm, cuda_panel, cuda_scatter, \
-    cuda_trsm, gemm
+from conflux_tpu_torch.ops import cuda_gemm, cuda_lanes, cuda_panel, \
+    cuda_scatter, cuda_trsm, gemm
 from conflux_tpu_torch.ops.gemm import (
     _matmul_t,
     _schur_update_t,
     _sub_matmul_bigk_t,
 )
 from conflux_tpu_torch.ops.panel import (
+    _gather_lanes,
+    _lu_select_loop_t,
     _pivot_solve_plain,
     _pivot_solve_t,
     _rank1_block_t,
+    _scatter_lanes,
     select_pivots,
 )
+from conflux_tpu_torch.precision import ieee_fp32
 from conflux_tpu_torch.ops.scatter import _gather_rows_t, _scatter_rows_t
 from conflux_tpu_torch.ops.tri import _split_hi_lo
 from conflux_tpu_torch.solve import cho_solve, lu_solve
@@ -1215,11 +1223,8 @@ def test_pivot_solve_checks_its_inputs(card):
 
 def _solves_per_panel(w, block):
     """Pivot-triangle solves of one w-wide panel in `block`-wide K1 blocks
-    (ops/panel._lu_select_loop_t): one per block that is not the last of
-    its 512-wide group, one per group that is not the panel's last."""
-    groups = range(0, w, max(512, block))
-    return (sum(len(range(g0, min(g0 + max(512, block), w), block)) - 1
-                for g0 in groups) + len(groups) - 1)
+    (ops/panel._lu_select_loop_t): one per deferred update."""
+    return sum(torch_onehot_panel.updates_of(w, block))
 
 
 def test_crout_at_4096_solves_pivot_triangles_on_card(card):
@@ -1260,7 +1265,9 @@ def test_f64_crout_at_the_cells_size(card):
     inputs: 41 f64 products through sub_dot and none through K2, K1 in
     double on its grid route for the 240 blocks wider than a cluster and
     on the cluster route for the last panel's 16, 21 x (9 + 2) + 3
-    pivot-triangle solves; the phase spans tile lu.factor (host and
+    pivot-triangle solves, as many pivot-lane gathers and as many
+    scatters (the 'gather' compaction finishes its pivot lanes); the
+    phase spans tile lu.factor (host and
     stream time, 99 % or more, as on the float32 path); the cell's judge
     passes it."""
     from benchmark import spec, work
@@ -1277,6 +1284,8 @@ def test_f64_crout_at_the_cells_size(card):
                 (cuda_panel, "LAUNCHES_F64_CLUSTER"),
                 (cuda_panel, "LAUNCHES_F64_TILE"),
                 (cuda_panel, "LAUNCHES"), (cuda_trsm, "LAUNCHES"),
+                (cuda_lanes, "GATHER_LAUNCHES"),
+                (cuda_lanes, "SCATTER_LAUNCHES"),
                 (cuda_gemm, "SUB_MATMUL_BIGK_LAUNCHES"),
                 (cuda_gemm, "SUB_MATMUL_BIGK_BF16_LAUNCHES"))
     before = [getattr(mod, name) for mod, name in counters]
@@ -1291,7 +1300,8 @@ def test_f64_crout_at_the_cells_size(card):
         profiler.PC()
     got = [getattr(mod, name) - b for (mod, name), b in zip(counters, before)]
     assert len(work.k2_calls("crout", n, v)) == 41
-    assert got == [41, 240, 16, 0, 0, 21 * (9 + 2) + 3, 0, 0]
+    updates = 21 * (9 + 2) + 3
+    assert got == [41, 240, 16, 0, 0, updates, updates, updates, 0, 0]
     _, host, dev = table["lu.factor"]
     phases = [table[f"lu.factor/lu.{p}"]
               for p in ("update", "panel", "solve", "compact")]
@@ -1300,3 +1310,100 @@ def test_f64_crout_at_the_cells_size(card):
     assert all(c == -(-n // v) for c, _, _ in phases)
     got = drv.readings(cfg, A, out)
     assert all(got[k] <= lim["limit"] for k, lim in cell.limits.items()), got
+
+
+def _lane_case(card, dtype, seed):
+    """A [300, 2000] source as a column slice of a wider tensor (row stride
+    2048), 96 pivot lanes whose ok entries are distinct and whose not-ok
+    ones repeat ok lanes and each other, and [300, 96] values."""
+    rng = np.random.default_rng(seed)
+    wide = torch.from_numpy(rng.standard_normal((300, 2048))).to(card, dtype)
+    lanes = rng.permutation(2000)[:96]
+    ok = np.ones(96, bool)
+    ok[60:] = False
+    lanes[60:] = lanes[rng.integers(0, 70, 36)]
+    vals = torch.from_numpy(rng.standard_normal((300, 96))).to(card, dtype)
+    return (wide[:, 24:2024], torch.from_numpy(lanes).to(card),
+            torch.from_numpy(ok).to(card), vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lane_moves_match_plain_on_card(card, dtype):
+    # the kernels against the plain versions on copies of the same inputs,
+    # bit for bit: an entry not ok reads 0 and writes nothing
+    src, piv, ok, vals = _lane_case(card, dtype, 31)
+    before = (cuda_lanes.GATHER_LAUNCHES, cuda_lanes.SCATTER_LAUNCHES)
+    got = _gather_lanes(src, piv, ok)
+    dst = src.clone()
+    _scatter_lanes(dst, piv, ok, vals)
+    torch.cuda.synchronize()
+    assert (cuda_lanes.GATHER_LAUNCHES - before[0],
+            cuda_lanes.SCATTER_LAUNCHES - before[1]) == (1, 1)
+    assert got.is_contiguous() and got.shape == (300, 96)
+    assert torch.equal(got.cpu(), _gather_lanes(src.cpu(), piv.cpu(),
+                                                ok.cpu()))
+    want = src.cpu().clone()
+    _scatter_lanes(want, piv.cpu(), ok.cpu(), vals.cpu())
+    assert torch.equal(dst.cpu(), want)
+    # into a strided destination, leaving its other columns as they were
+    wide = torch.zeros(300, 2048, device=card, dtype=dtype)
+    _scatter_lanes(wide[:, 24:2024], piv, ok, vals)
+    want = torch.zeros(300, 2000, dtype=dtype)
+    _scatter_lanes(want, piv.cpu(), ok.cpu(), vals.cpu())
+    assert torch.equal(wide[:, 24:2024].cpu(), want)
+    assert not bool(wide[:, :24].any()) and not bool(wide[:, 2024:].any())
+
+
+def test_lane_moves_check_their_inputs(card):
+    src, piv, ok, vals = _lane_case(card, torch.float32, 32)
+    before = (cuda_lanes.GATHER_LAUNCHES, cuda_lanes.SCATTER_LAUNCHES)
+    with pytest.raises(TypeError):
+        cuda_lanes.gather_lanes(src.half(), piv, ok)
+    with pytest.raises(TypeError):
+        cuda_lanes.scatter_lanes_(src, piv, ok, vals.double())
+    with pytest.raises(ValueError, match="int64"):
+        cuda_lanes.gather_lanes(src, piv.int(), ok)
+    with pytest.raises(ValueError, match="int64"):
+        cuda_lanes.gather_lanes(src, piv, ok[:10])
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_lanes.scatter_lanes_(src, piv, ok,
+                                  torch.zeros(96, 300, device=card).T)
+    with pytest.raises(ValueError, match="unit lane stride"):
+        cuda_lanes.gather_lanes(src.T, piv, ok)
+    with pytest.raises(ValueError, match="dense side"):
+        cuda_lanes.scatter_lanes_(src, piv, ok, vals[:10])
+    with pytest.raises(ValueError, match="not on"):
+        cuda_lanes.gather_lanes(src, piv.cpu(), ok)
+    assert (cuda_lanes.GATHER_LAUNCHES,
+            cuda_lanes.SCATTER_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("rows", ["all", "fewer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_select_loop_equals_onehot_formulation_on_card(card, dtype, rows):
+    # a crout panel [8192, 1536] in 128-wide blocks with its pivot lanes
+    # finished: the loop's index moves give the one-hot products' values,
+    # so piv, ok and Pt equal the one-hot formulation's bit for bit, with
+    # the same K1 and pivot-triangle kernels; 'fewer' leaves 1000 rows
+    # active, so the later blocks' entries are not ok
+    m, npiv, block = 8192, 1536, 128
+    g = torch.Generator(device=card).manual_seed(41)
+    panel = torch.randn(m, npiv, generator=g, device=card).to(dtype)
+    active = torch.ones(m, dtype=torch.bool, device=card)
+    if rows == "fewer":
+        active[torch.randperm(m, generator=g, device=card)[1000:]] = False
+    before = (cuda_lanes.GATHER_LAUNCHES, cuda_lanes.SCATTER_LAUNCHES)
+    with ieee_fp32():
+        got = _lu_select_loop_t(panel, active, npiv, False, block=block,
+                                finish=True)
+        torch.cuda.synchronize()
+        moved = (cuda_lanes.GATHER_LAUNCHES - before[0],
+                 cuda_lanes.SCATTER_LAUNCHES - before[1])
+        ref = torch_onehot_panel.onehot_select_loop_t(
+            panel, active, npiv, False, block=block, finish=True)
+    inner, outer = torch_onehot_panel.updates_of(npiv, block)
+    assert (inner, outer) == (9, 2)
+    assert moved == (inner + outer, inner + outer)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got[1].sum()) == (npiv if rows == "all" else 1000)

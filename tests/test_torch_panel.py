@@ -1,7 +1,10 @@
 """Parity of the PyTorch port's panel factorization (conflux_tpu_torch/ops/
 panel.py) with the JAX reference (conflux_tpu/ops/panel.py), and checks of
-the rank-1 block kernel K1 (conflux_tpu_torch/ops/cuda_panel.py) and of the
-pivot-triangle solve's dispatch (conflux_tpu_torch/ops/cuda_trsm.py).
+the rank-1 block kernel K1 (conflux_tpu_torch/ops/cuda_panel.py), of the
+pivot-triangle solve's dispatch (conflux_tpu_torch/ops/cuda_trsm.py), and
+of the panel loop's pivot-lane moves: bit for bit the one-hot products
+they replace (tests/torch_onehot_panel.py), with one matrix product per
+deferred update.
 
 The plain rank-1 block is held to both the JAX twin and the Pallas kernel
 run in interpret mode, as tests/test_panel.py runs it. Pivots must be
@@ -16,10 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch_onehot_panel
+from torch.utils._python_dispatch import TorchDispatchMode
+
 import conflux_tpu.ops.panel as jpanel
 import conflux_tpu_torch.ops.panel as tpanel
 from conflux_tpu.ops.pallas_panel import rank1_block_pallas_t
-from conflux_tpu_torch.ops import cuda_panel, cuda_trsm
+from conflux_tpu_torch.ops import cuda_lanes, cuda_panel, cuda_trsm
 
 TOL = 1e-5
 MODES = ["unforced", "forced", "finish"]
@@ -274,3 +280,152 @@ def test_pivot_solve_on_cpu_never_loads_the_kernel(rng, monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         cuda_trsm.solve_unit_lower_t(torch.zeros(4, 8), torch.eye(8))
     assert cuda_trsm.LAUNCHES == before
+
+
+# the panel loop's pivot-lane moves: m lanes, npiv > _GROUP columns in
+# 128-wide blocks, so 3 inner deferred updates and one outer one. 'fewer'
+# leaves 200 rows active (lane 0 among them): blocks 128..255 are partly
+# and 256..639 wholly not ok, and their pivots repeat lane 0 (the plain
+# K1's argmax over no available lane), an ok pivot's lane
+LOOP_M, LOOP_NPIV, LOOP_BLOCK = 700, 640, 128
+
+
+def _loop_panel(mode, dtype, rows, seed=5):
+    """[m, npiv] panel and [m] active rows; forced mode gets a diagonally
+    dominant leading square (it eliminates in order)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((LOOP_M, LOOP_NPIV))
+    if mode == "forced":
+        A[np.arange(LOOP_NPIV), np.arange(LOOP_NPIV)] += LOOP_NPIV
+    active = np.ones(LOOP_M, bool)
+    if rows == "fewer":
+        active[:] = False
+        active[0] = True
+        active[1 + rng.permutation(LOOP_M - 1)[:199]] = True
+    return torch.from_numpy(A).to(dtype), torch.from_numpy(active)
+
+
+@pytest.mark.parametrize("rows", ["all", "fewer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", MODES)
+def test_select_loop_equals_onehot_formulation(mode, dtype, rows):
+    # the pivot lanes moved by index give the one-hot products' values
+    # exactly (a -0 aside, which torch.equal takes for +0): the same piv,
+    # ok and Pt, bit for bit, through inner and outer updates, with and
+    # without the finishing scatter
+    panel, active = _loop_panel(mode, dtype, rows)
+    forced, finish = mode == "forced", mode == "finish"
+    got = tpanel._lu_select_loop_t(panel, active, LOOP_NPIV, forced,
+                                   block=LOOP_BLOCK, finish=finish)
+    ref = torch_onehot_panel.onehot_select_loop_t(
+        panel, active, LOOP_NPIV, forced, block=LOOP_BLOCK, finish=finish)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    piv, ok, _ = got
+    if rows == "all":
+        assert bool(ok.all())
+    elif not forced:
+        # not-ok entries exist past block 128 and name an ok pivot's lane
+        assert int(ok.sum()) == 200 and bool(ok[:200].all())
+        assert set(piv[~ok].tolist()) & set(piv[ok].tolist())
+
+
+class _Products(TorchDispatchMode):
+    """Records the operand shapes of every matrix product dispatched while
+    not paused."""
+
+    PRODUCTS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+                torch.ops.aten.baddbmm, torch.ops.aten.mv, torch.ops.aten.dot}
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+        self.paused = False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self.paused and func.overloadpacket in self.PRODUCTS:
+            self.shapes.append(tuple(tuple(a.shape) for a in args
+                                     if isinstance(a, torch.Tensor)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_select_loop_issues_one_product_per_update(mode, monkeypatch):
+    # outside K1 and the pivot-triangle solve (each one kernel on the
+    # card), a deferred update issues one matrix product, the multipliers'
+    # U12t [rest, w] @ Lmul_t [w, m], and no product with an m-wide one-hot
+    # operand; its pivot lanes move by one gather, and by one scatter where
+    # the elimination finishes its pivot lanes (forced pivots are sliced)
+    panel, active = _loop_panel(mode, torch.float32, "all")
+    forced, finish = mode == "forced", mode == "finish"
+    rec = _Products()
+
+    def paused(fn):
+        def call(*args, **kwargs):
+            rec.paused = True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec.paused = False
+        return call
+
+    monkeypatch.setattr(tpanel, "_rank1_dispatch",
+                        paused(tpanel._rank1_dispatch))
+    monkeypatch.setattr(tpanel, "_pivot_solve_t",
+                        paused(tpanel._pivot_solve_t))
+    before = tpanel.LANE_MOVES
+    with rec:
+        tpanel._lu_select_loop_t(panel, active, LOOP_NPIV, forced,
+                                 block=LOOP_BLOCK, finish=finish)
+    moves = tpanel.LANE_MOVES - before
+    m, npiv, block = LOOP_M, LOOP_NPIV, LOOP_BLOCK
+    want = [((512 - b1, block), (block, m))
+            for b1 in range(block, 512, block)]
+    want.append(((npiv - 512, 512), (512, m)))
+    assert torch_onehot_panel.updates_of(npiv, block) == (3, 1)
+    assert sorted(rec.shapes) == sorted(want)
+    per_update = {"unforced": 1, "finish": 2, "forced": 0}[mode]
+    assert moves == per_update * len(want)
+
+
+def test_lane_moves_plain_versions(rng):
+    # entries not ok read 0 and write nothing, whatever lane they name
+    src = torch.from_numpy(rng.standard_normal((5, 30)))
+    piv = torch.tensor([7, 3, 7, 0, 29])
+    ok = torch.tensor([True, True, False, False, True])
+    got = tpanel._gather_lanes(src, piv, ok)
+    want = src[:, piv].clone()
+    want[:, ~ok] = 0
+    assert got.is_contiguous() and torch.equal(got, want)
+    dst = src.clone()
+    vals = torch.from_numpy(rng.standard_normal((5, 5)))
+    tpanel._scatter_lanes(dst, piv, ok, vals)
+    want = src.clone()
+    want[:, [7, 3, 29]] = vals[:, [0, 1, 4]]
+    assert torch.equal(dst, want)
+
+
+def test_lane_moves_take_plain_versions_on_cpu_only(monkeypatch):
+    from conflux_tpu_torch.ops import _build
+
+    def refuse(name):
+        raise AssertionError(f"{name} was loaded for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = (cuda_lanes.GATHER_LAUNCHES, cuda_lanes.SCATTER_LAUNCHES)
+    piv, ok = torch.tensor([1, 0]), torch.tensor([True, True])
+    tpanel._gather_lanes(torch.ones(3, 4), piv, ok)
+    tpanel._scatter_lanes(torch.ones(3, 4), piv, ok, torch.zeros(3, 2))
+    meta = torch.zeros(3, 4, device="meta")
+    with pytest.raises(ValueError, match="no pivot-lane gather"):
+        tpanel._gather_lanes(meta, piv.to("meta"), ok.to("meta"))
+    with pytest.raises(ValueError, match="no pivot-lane scatter"):
+        tpanel._scatter_lanes(meta, piv.to("meta"), ok.to("meta"),
+                              torch.zeros(3, 2, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_lanes.gather_lanes(torch.ones(3, 4), piv, ok)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_lanes.scatter_lanes_(torch.ones(3, 4), piv, ok,
+                                  torch.zeros(3, 2))
+    assert (cuda_lanes.GATHER_LAUNCHES,
+            cuda_lanes.SCATTER_LAUNCHES) == before
