@@ -42,7 +42,9 @@ device pointer: "writev ... Bad address"). So on a gloo world whose
 tensors live on a card, ppermute's isend/irecv pairs are staged through
 host memory explicitly: the tensor is copied to the CPU, sent or
 received there, and the result copied back. The staging is fixed per
-backend and op; NCCL stages nothing.
+backend and op; NCCL stages nothing. A rank's sends and receives of one
+ppermute go in one `batch_isend_irecv`: NCCL requires a two-way exchange
+to be grouped.
 
 Dtypes. The collectives move every dtype as it is: float32, bfloat16,
 float64 and complex (gloo takes all of them on CPU and CUDA tensors,
@@ -51,20 +53,28 @@ complex tensor, which gloo refuses ("Invalid scalar type"): it moves the
 tensor's real view (`torch.view_as_real`), the same bytes. Nothing is
 upcast.
 
-Record. Every call appends a `CommRecord` (op, axes, shape, dtype, pairs)
-to `Comm.record`, this rank's list of the collectives it issued: the
-counterpart of the jaxpr walk of tests/test_spec_comm.py, from which
+Record. Every call appends a `CommRecord` (op, axes, shape, dtype, pairs,
+nbytes) to `Comm.record`, this rank's list of the collectives it issued:
+the counterpart of the jaxpr walk of tests/test_spec_comm.py, from which
 tests/test_torch_comm.py recomputes the ring volumes of the comm model
 (spec.CommVolume).
+
+Spans. Each collective runs inside `profiler.span("comm.<op>")`, off
+unless the profiler is on (a `torch.profiler` session or
+`profiler.enable(True)`), so a trace files the device's idle time under
+the collective whose host work it waited on.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import warnings
 from typing import NamedTuple
 
 import torch
+
+from conflux_tpu_torch.profiler import span
 
 AXES = ("x", "y", "z")
 # every axis subset, in the one order all ranks create their groups in
@@ -76,13 +86,14 @@ class CommRecord(NamedTuple):
     """One collective as this rank issued it: op ('psum', 'all_gather',
     'ppermute', 'psum_scatter', 'gather' or 'all_to_all'), the axes it ran
     over (() for the world), the shape and dtype of this rank's operand,
-    and for ppermute the number of (src, dst) pairs."""
+    for ppermute the number of (src, dst) pairs, and the operand's bytes."""
 
     op: str
     axes: tuple
     shape: tuple
     dtype: str
     pairs: int = 0
+    nbytes: int = 0
 
 
 def rank_of(coords, shape) -> int:
@@ -95,6 +106,17 @@ def coords_of(rank: int, shape):
     """(pi, pj, pz) of a global rank on a (Px, Py, Pz) grid."""
     _, Py, Pz = shape
     return rank // (Py * Pz), (rank // Pz) % Py, rank % Pz
+
+
+def _spanned(fn):
+    """The collective `fn` inside its span, comm.<name of fn>."""
+    name = "comm." + fn.__name__
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        with span(name):
+            return fn(self, *args, **kwargs)
+    return call
 
 
 def _canon(axes) -> tuple:
@@ -156,11 +178,12 @@ class Comm:
     def _log(self, op, axes, t, pairs=0):
         self.record.append(CommRecord(op, axes, tuple(t.shape),
                                       str(t.dtype).replace("torch.", ""),
-                                      pairs))
+                                      pairs, t.numel() * t.element_size()))
 
     def _group(self, axes):
         return self._groups.get(axes, (None, None))
 
+    @_spanned
     def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
         """Sum over `axes` (any subset), as a new tensor on every rank."""
         import torch.distributed as dist
@@ -176,6 +199,7 @@ class Comm:
             dist.all_reduce(out, group=group)
         return out
 
+    @_spanned
     def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """[size(axis), *t.shape]: every coordinate's tensor, in order."""
         import torch.distributed as dist
@@ -190,6 +214,7 @@ class Comm:
         dist.all_gather(parts, x, group=group)
         return torch.stack(parts)
 
+    @_spanned
     def ppermute(self, t: torch.Tensor, axis: str, pairs) -> torch.Tensor:
         """Send along `axis` from each pair's src coordinate to its dst;
         zeros where this rank receives nothing. Sources and destinations
@@ -206,22 +231,25 @@ class Comm:
         me = self.coord(axis)
         out = torch.zeros_like(t)
         _, members = self._group(axes)
-        works, recv = [], None
+        ops, recv = [], None
         x = (t.cpu() if self._stage_p2p else t).contiguous()
         for s, d in pairs:
             if s == d == me:
                 out = t.clone()
             elif s == me:
-                works.append(dist.isend(x, members[d]))
+                ops.append(dist.P2POp(dist.isend, x, members[d]))
             elif d == me:
                 recv = torch.empty_like(x)
-                works.append(dist.irecv(recv, members[s]))
-        for w in works:
+                ops.append(dist.P2POp(dist.irecv, recv, members[s]))
+        # one batch: NCCL must group a rank's send and receive, or two
+        # ranks that exchange both ways can each wait on the other
+        for w in dist.batch_isend_irecv(ops) if ops else ():
             w.wait()
         if recv is None:
             return out
         return recv.to(self.device) if self._stage_p2p else recv
 
+    @_spanned
     def psum_scatter(self, t: torch.Tensor, axis: str,
                      dim: int = 0) -> torch.Tensor:
         """The sum along `axis`, split along `dim` into size(axis) equal
@@ -246,6 +274,7 @@ class Comm:
             dist.reduce_scatter_tensor(out, x, group=group)
         return out.movedim(0, dim)
 
+    @_spanned
     def all_to_all(self, t: torch.Tensor, in_splits, out_splits):
         """The whole world's all-to-all (`dist.all_to_all_single`), which
         every rank of the world calls, idle ones too: this rank's 1-D t is
@@ -263,6 +292,7 @@ class Comm:
                                list(in_splits))
         return out
 
+    @_spanned
     def gather(self, t: torch.Tensor, root: int = 0):
         """[P, *t.shape] of every grid rank's tensor, in rank order, on grid
         rank `root`; None on the other ranks."""

@@ -62,6 +62,10 @@ def _rank_main(rank, P, init, backend, device, timeout, results, fn, args):
         dist.init_process_group(
             backend, init_method=init, world_size=P, rank=rank,
             timeout=datetime.timedelta(seconds=timeout))
+        # every rank has joined before any runs fn: a rank that returns
+        # at once tears its group down, and a peer still connecting to it
+        # would fail
+        dist.barrier()
         results.put((rank, True, fn(*args)))
     except BaseException:                      # reported, then re-raised
         results.put((rank, False, traceback.format_exc()))

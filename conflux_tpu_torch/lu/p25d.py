@@ -357,10 +357,11 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
     """The right-looking rank program on this rank's block G (not
     modified). Returns (F [Ml, Nl], this rank's block of the merged
     factor in pivot order, and pivots [M], the same on every rank).
-    region(name) is entered around each substep (step0_reduce,
-    step1_pivot, step23_rows, step45_trsm, step6_update): the profiled
-    program's fenced timers (lu/profiled.py); `profiler.span` otherwise
-    (a null context unless profiled)."""
+    region(name) is entered around each substep (lu25d.step0_reduce,
+    lu25d.step1_pivot, lu25d.step23_rows, lu25d.step45_trsm,
+    lu25d.step6_update): `profiler.span` (a null context unless
+    profiled), or the profiled program's fenced timers
+    (lu/profiled.py)."""
     g = desc.grid
     comm = g.comm
     v, Px, Py, Pz = desc.v, g.Px, g.Py, g.Pz
@@ -387,12 +388,12 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
         own_x = pi == k % Px
 
         # -- step 0: lazy z-reduction of the panel column --------------------
-        with region("step0_reduce"):
+        with region("lu25d.step0_reduce"):
             colk = (colnext if lookahead
                     else comm.psum(A[:, c0:c0 + v].to(cdt), "z"))
 
         # -- step 1: pivot selection over 'x' ---------------------------------
-        with region("step1_pivot"):
+        with region("lu25d.step1_pivot"):
             win_idx, lu00 = _choose_pivots(comm, pivoting, colk, active, gri,
                                            k, v, Px, own_y)
             if pivoting != "none":
@@ -409,12 +410,12 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
         # -- steps 2+3: the v pivot rows, full width, on every rank ----------
         # trailing columns are z-partials and frozen L columns live on layer
         # 0, so one masked psum over ('x', 'z') gives the true rows
-        with region("step23_rows"):
+        with region("lu25d.step23_rows"):
             raw = comm.psum(torch.where(mine[:, None], A[lr], 0.0).to(cdt),
                             ("x", "z"))
 
         # -- steps 4+5: TRSMs ---------------------------------------------------
-        with region("step45_trsm"):
+        with region("lu25d.step45_trsm"):
             L00, U00 = _pivot_blocks(lu00)
             Y = trsm_left_lower_unit(L00, raw[:, c0:], method="invert")
             if own_x and pz == 0:
@@ -433,7 +434,7 @@ def _local_lu_25d(desc: BlockCyclic, pivoting: str, precision: str,
         # -- step 6: split-K trailing update (layer pz takes an l slice) -----
         # only that slice of L10 is broadcast over 'y' (the reference's
         # per-layer Iscatterv on jk_comm, conflux_opt.hpp:1424-1434)
-        with region("step6_update"):
+        with region("lu25d.step6_update"):
             L10p = torch.nn.functional.pad(L10, (0, kpad)) if kpad else L10
             Lk = comm.psum(L10p[:, pz * l:(pz + 1) * l] if own_y
                            else L10.new_zeros((mr, l)), "y")       # [mr, l]
@@ -697,6 +698,10 @@ def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
     'x', which changes the tournament's candidate groups: CALU pivots
     depend on the tree by construction; 'full' and 'none' do not.
 
+    The rank program runs inside the span `lu25d.factor`, its
+    right-looking substeps inside `lu25d.step*` spans and each collective
+    inside a `comm.*` span (all off unless profiled).
+
     A (1, 1, 1) grid with 'tournament', 'gather' or 'full' runs
     `lu.single.lu_factor`'s 'auto' on G, whose desc.M rows are the whole
     matrix there (every strategy is exact partial pivoting there), and
@@ -707,13 +712,14 @@ def lu_25d(G: torch.Tensor, desc: BlockCyclic, pivoting: str = "tournament",
     variant = normalize_variant(unroll, desc, "lu")
     if desc.grid.P == 1 and pivoting != "none":
         return lu_factor(G, desc.v, precision)
-    if variant == "crout":
-        return _local_lu_25d_crout(desc, pivoting, precision, G, rowpart)
-    return _local_lu_25d(
-        desc, pivoting, precision, G,
-        rebalance_after=_rebalance_steps(variant, desc.Nt, desc.grid.Px,
-                                         rowpart, windows),
-        lookahead=variant == "lookahead")
+    with span("lu25d.factor"):
+        if variant == "crout":
+            return _local_lu_25d_crout(desc, pivoting, precision, G, rowpart)
+        return _local_lu_25d(
+            desc, pivoting, precision, G,
+            rebalance_after=_rebalance_steps(variant, desc.Nt, desc.grid.Px,
+                                             rowpart, windows),
+            lookahead=variant == "lookahead")
 
 
 @ieee_fp32()

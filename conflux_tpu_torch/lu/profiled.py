@@ -51,6 +51,8 @@ def lu_25d_profiled(G: torch.Tensor, desc: BlockCyclic,
     _check(G, desc, pivoting)
 
     def region(name):
-        return profiler.region(name, sync=G)
+        # the table keeps the substeps' own names, without the rank
+        # program's span prefix
+        return profiler.region(name.removeprefix("lu25d."), sync=G)
 
     return _local_lu_25d(desc, pivoting, precision, G, region=region)

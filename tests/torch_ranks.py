@@ -411,3 +411,107 @@ def dtype_cases(cases):
                     "perm": _numpy(perm), "gate": gate, "v": desc.v,
                     "grid": str(desc.grid), "records": records})
     return {"cases": out, "jax_free": _jax_free()}
+
+
+def lu25d_cases(cfg):
+    """The 2.5D LU's benchmark path on a (2, 2, 1) world
+    (tests/test_torch_lu25d_bench.py):
+
+      * "parity": for each (A, v, unroll, rowpart), lu_25d 'tournament'
+        at 'highest' on `cfg["device"]`; rank 0's dense factor and the
+        pivots;
+      * "work": one 'windowed' 'high' factorization of cfg["work"] = (A,
+        v), recording the shape of every K1 block (w, m, forced) and K3
+        update (m, n', k) this rank launches;
+      * "spans": cfg["spans"] = (A, v) factored 'windowed' 'high' with
+        the spans off, under a CPU `torch.profiler` session and under
+        `profiler.enable(True)`: whether the three factors are
+        bit-identical, the `lu25d.*` / `comm.*` span events by name, the
+        span table's paths, and the collectives recorded in one run."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity
+
+    from conflux_tpu_torch.lu import p25d
+    from conflux_tpu_torch.ops import panel
+
+    dev = cfg.get("device", "cpu")
+    grid = make_grid((2, 2, 1), device=dev)
+    out = {"parity": [], "jax_free": _jax_free()}
+
+    def factor(A, v, precision, unroll="windowed", rowpart=None):
+        desc = BlockCyclic.create(A.shape[0], A.shape[1], v, grid)
+        F, piv = lu_25d(distribute(A, desc), desc, "tournament", precision,
+                        unroll, rowpart=rowpart)
+        return desc, F, piv
+
+    for A, v, unroll, rowpart in cfg.get("parity", ()):
+        desc, F, piv = factor(A, v, "highest", unroll, rowpart)
+        dense = undistribute(F, desc)
+        out["parity"].append((None if dense is None else dense.cpu().numpy(),
+                              piv.cpu().numpy()))
+    if "work" in cfg:
+        k1, k3 = [], []
+        dispatch, update = panel._rank1_dispatch, p25d.schur_update
+
+        def rank1(Bt, availf, j0, forced, finish=False):
+            k1.append((Bt.shape[0], Bt.shape[1], forced))
+            return dispatch(Bt, availf, j0, forced, finish)
+
+        def schur(R, L, Y, c0, mode, c1=None):
+            k3.append((R.shape[0], Y.shape[1], L.shape[1]))
+            return update(R, L, Y, c0, mode, c1)
+
+        panel._rank1_dispatch, p25d.schur_update = rank1, schur
+        try:
+            factor(*cfg["work"], "high")
+        finally:
+            panel._rank1_dispatch, p25d.schur_update = dispatch, update
+        out["work"] = {"k1": k1, "k3": k3}
+    if "spans" in cfg:
+        A, v = cfg["spans"]
+        grid.comm.record.clear()
+        _, off, _ = factor(A, v, "high")
+        records = list(grid.comm.record)
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU]) as prof:
+            _, traced, _ = factor(A, v, "high")
+        events = Counter(ev.name for ev in prof.events()
+                         if ev.name.startswith(("lu25d.", "comm.")))
+        profiler.PC()
+        profiler.enable(True)
+        try:
+            _, on, _ = factor(A, v, "high")
+            table = profiler.snapshot()
+        finally:
+            profiler.enable(False)
+            profiler.PC()
+        out["spans"] = {
+            "identical": torch.equal(off, traced) and torch.equal(off, on),
+            "events": dict(events),
+            "table": {path: calls for path, (calls, _, _) in table.items()},
+            "records": records}
+    return out
+
+
+def lu25d_nccl_launches(A, v):
+    """One 'windowed' 'high' lu_25d of A on a (2, 2, 1) grid of cards
+    (tests/test_torch_lu25d_cuda.py), after a warm one, under a CPU and
+    CUDA `torch.profiler` session: this rank's NCCL kernels by name and
+    its record of the collectives of the traced factorization."""
+    from torch.profiler import DeviceType, ProfilerActivity
+
+    grid = make_grid((2, 2, 1))
+    desc = BlockCyclic.create(A.shape[0], A.shape[1], v, grid)
+    G = distribute(A, desc)
+    lu_25d(G, desc, "tournament", "high")
+    torch.cuda.synchronize()
+    grid.comm.record.clear()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        lu_25d(G, desc, "tournament", "high")
+        torch.cuda.synchronize()
+    return {"nccl": [ev.name for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA
+                     and "nccl" in ev.name],
+            "records": list(grid.comm.record), "jax_free": _jax_free()}
