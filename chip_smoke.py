@@ -224,6 +224,25 @@ def k1_blocks(path: str, n: int = N, v: int = V):
     return blocks
 
 
+def lower_solve_launches(path: str, n: int = N, v: int = V) -> int:
+    """csrc/lower_solve.cu's launches in one n, v factorization of `path`:
+    crout's winners' solve (`lu.single._crout_steps`: crout, swap, split,
+    the stepped crout, bf16 storage's crout, and the f64 crout where
+    `ops.tri._LSOLVE_DTYPES` holds float64) launches it once per
+    `ops.tri._LSOLVE_ROWS` rows of w at each step with k + w < n; no other
+    path does."""
+    import torch
+
+    from conflux_tpu_torch.ops import tri
+
+    if path not in ("crout", "swap", "split", "stepped crout",
+                    "bf16 crout") and not (
+            path == "f64 crout" and torch.float64 in tri._LSOLVE_DTYPES):
+        return 0
+    return sum(-(-v // tri._LSOLVE_ROWS) for k in range(0, n, v)
+               if k + v < n)
+
+
 def loop_launches(path: str, n: int = N, v: int = V) -> dict:
     """Each kernel's launches in one n, v factorization of `path` (a main
     path or a stepped one), from its step loop: K1's one per block of
@@ -423,6 +442,10 @@ K1_F64_TOL = 1e-12
 # a ragged one
 TRSM_SHAPES = ((384, 128, False), (1024, 512, True), (448, 64, False),
                (100, 96, False))
+# crout's winners' solve [V, c] (ops/tri.solve_lower_rows, the diagonal
+# kernel csrc/lower_solve.cu): c = N - k - V at the first, a middle and the
+# last solve of the N = 32768 cells, the first and last of N = 16384's
+WINNERS_COLS = (N - V, N // 2 + 1024, N % V, N // 2 - V, 1024)
 # the panel's pivot-lane moves (rows, n) at crout's first panel, m = N
 # lanes: a block update's gather of rows b0..g1 at its widest, a group
 # update's gather of rows g0..w and its scatter into the 1024 rows past
@@ -540,17 +563,18 @@ def phase_device():
 
 
 SOURCES = ("rank1_panel", "schur_update", "bigk_gemm", "row_move",
-           "rank1_panel_f64", "panel_trsm", "lane_move")
+           "rank1_panel_f64", "panel_trsm", "lane_move", "lower_solve")
 
 
 def phase_build():
     from conflux_tpu_torch.ops import _build, cuda_gemm, cuda_lanes, \
-        cuda_panel, cuda_scatter, cuda_trsm
+        cuda_lower_solve, cuda_panel, cuda_scatter, cuda_trsm
 
     t0 = time.perf_counter()
     _build.build(SOURCES)
     cuda_panel._load()
     cuda_trsm._load()
+    cuda_lower_solve._load()
     cuda_lanes._load()
     cuda_panel._load_f64()
     cuda_gemm._load()
@@ -728,6 +752,86 @@ def phase_trsm():
                   f"{t_l:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
             if not diff <= 2 * scale:
                 fail(f"{tag}: max|diff| {diff} > 2 * {scale}")
+
+
+def phase_winners_solve():
+    """Crout's winners' solve [V, c] at WINNERS_COLS, f32 and f64, on the
+    winners' merged factors of a random [2V, V] block (partial pivoting,
+    on the CPU), row-major as the step loop leaves them, B random: the
+    blocked solve with the diagonal kernel (`ops/tri.solve_lower_rows`
+    with `cuda_lower_solve.solve_diag`, IEEE fp32 products) within 2 eps
+    kappa_inf(L) max|B| of its plain version (`solve_lower_rows` with
+    `_diag_solve_plain`) and of the float64 solve, its kernel launches
+    checked by the counter; timed beside its bound, the plain version, the
+    inverse chain it replaced (`_solve_unit_lower_blocked`) and
+    `torch.linalg.solve_triangular` (a yardstick only: no path calls it).
+    Crout takes the blocked solve in the dtypes of `tri._LSOLVE_DTYPES`
+    (float32); float64 is timed all the same."""
+    import torch
+
+    from conflux_tpu_torch.ops import cuda_lower_solve, tri
+    from conflux_tpu_torch.ops.panel import select_pivots
+    from conflux_tpu_torch.precision import ieee_fp32
+    from conflux_tpu_torch.timing import per_call_ms
+
+    @ieee_fp32()
+    def blocked(lu, B, X):
+        tri.solve_lower_rows(lu, B, X, cuda_lower_solve.solve_diag)
+
+    for dtype in (torch.float32, torch.float64):
+        rng = np.random.default_rng(V)
+        block = torch.from_numpy(rng.standard_normal((2 * V, V)))
+        _, _, lu = select_pivots(block.to(dtype), torch.ones(
+            2 * V, dtype=torch.bool), V, block=128)
+        L64 = torch.tril(lu.double(), -1) + torch.eye(V, dtype=torch.float64)
+        kappa = float(L64.abs().sum(1).max()
+                      * torch.linalg.inv(L64).abs().sum(1).max())
+        lu = lu.contiguous().cuda()
+        L64 = L64.cuda()
+        L = L64.to(dtype)
+        for c in WINNERS_COLS:
+            B = torch.from_numpy(rng.standard_normal((V, c))).to("cuda",
+                                                                 dtype)
+            X, Bw = torch.empty_like(B), B.clone()
+            before = cuda_lower_solve.LAUNCHES
+            blocked(lu, Bw, X)
+            torch.cuda.synchronize()
+            blocks = -(-V // tri._LSOLVE_ROWS)
+            if cuda_lower_solve.LAUNCHES != before + blocks:
+                fail(f"winners' solve [{V}, {c}]: launch counter moved "
+                     f"{cuda_lower_solve.LAUNCHES - before}, not {blocks}")
+            plain = torch.empty_like(B)
+            tri.solve_lower_rows(lu, B.clone(), plain)
+            ref = torch.linalg.solve_triangular(L64, B.double(), upper=False,
+                                                unitriangular=True)
+            diff = float((X - plain).abs().max())
+            diff64 = float((X.double() - ref).abs().max())
+            scale = torch.finfo(dtype).eps * kappa * float(B.abs().max())
+            t_k = per_call_ms(blocked, lu, Bw, X)
+            t_p = per_call_ms(tri.solve_lower_rows, lu, Bw, plain, calls=2,
+                              reps=1)
+            t_c = per_call_ms(lambda b: tri._solve_unit_lower_blocked(
+                tri.unit_lower(lu), b), B)
+            t_l = per_call_ms(lambda b: torch.linalg.solve_triangular(
+                L, b, upper=False, unitriangular=True), B)
+            size = torch.finfo(dtype).bits // 8
+            # V (V - 1) / 2 c multiply-adds at the fp32 FMA rate (the f64
+            # products' tensor cores run at it too); B and X once, L's
+            # strict lower part once
+            bound = _bound(1.0 * V * (V - 1) * c,
+                           size * (2.0 * V * c + V * (V - 1) / 2),
+                           FP32_FLOP_S)
+            tag = f"winners' solve [{V}, {c}] {str(dtype)[6:]}"
+            print(f"{tag}: max|diff| {diff:.3e} against the plain version, "
+                  f"{diff64:.3e} against float64 (eps kappa max|B| "
+                  f"{scale:.3e}, kappa {kappa:.3g}), blocked solve "
+                  f"{t_k:.4f} ms ({blocks} kernel launches), bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}), plain version "
+                  f"{t_p:.4f} ms, inverse chain {t_c:.4f} ms, "
+                  f"torch.linalg.solve_triangular {t_l:.4f} ms")
+            if not (diff <= 2 * scale and diff64 <= 2 * scale):
+                fail(f"{tag}: max|diff| {diff}, {diff64} > 2 * {scale}")
+            del B, X, Bw, plain, ref
 
 
 def phase_lanes():
@@ -1559,7 +1663,8 @@ def _tf32_check(A, S, b):
 
 def _counters():
     """Each kernel's launch counter: (module, attribute) by kernel name."""
-    from conflux_tpu_torch.ops import cuda_gemm, cuda_panel, cuda_scatter
+    from conflux_tpu_torch.ops import cuda_gemm, cuda_lower_solve, \
+        cuda_panel, cuda_scatter
 
     return {"rank1_panel": (cuda_panel, "LAUNCHES"),
             "schur_update": (cuda_gemm, "SCHUR_UPDATE_LAUNCHES"),
@@ -1598,7 +1703,8 @@ def _counters():
             "matmul mma.sync": (cuda_gemm, "MATMUL_MMA_SYNC_LAUNCHES"),
             "scatter_rows bulk": (cuda_scatter,
                                   "SCATTER_ROWS_BULK_LAUNCHES"),
-            "gather_rows bulk": (cuda_scatter, "GATHER_ROWS_BULK_LAUNCHES")}
+            "gather_rows bulk": (cuda_scatter, "GATHER_ROWS_BULK_LAUNCHES"),
+            "lower_solve": (cuda_lower_solve, "LAUNCHES")}
 
 
 def _reset_counts():
@@ -1653,6 +1759,7 @@ def _path_want(path: str) -> dict:
     want.update({f"sub_matmul_bigk_bf16 {r}": 0 for r in BF16_COUNTS})
     if want["sub_matmul_bigk_bf16"]:
         want.update(BF16_ROUTE_LAUNCHES[path])
+    want["lower_solve"] = lower_solve_launches(path)
     return want
 
 
@@ -2374,6 +2481,7 @@ def _loop_want(path: str, n: int, v: int) -> dict:
     want.update({f"sub_matmul_bigk_bf16 {r}": 0 for r in BF16_COUNTS})
     if want["sub_matmul_bigk_bf16"]:
         want.update(BF16_ROUTE_LAUNCHES[path])
+    want["lower_solve"] = lower_solve_launches(path, n, v)
     return want
 
 
@@ -2736,6 +2844,7 @@ def main() -> int:
     k1_rows = phase_k1()
     k1f64_rows = phase_k1_f64()
     phase_trsm()
+    phase_winners_solve()
     phase_lanes()
     medium_bf16 = phase_medium_probe()
     k3_rows = phase_k3(medium_bf16)

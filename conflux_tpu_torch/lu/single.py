@@ -58,6 +58,7 @@ from conflux_tpu_torch.ops.scatter import gather_rows, scatter_rows
 from conflux_tpu_torch.ops.tri import (
     schur_dot,
     trsm_left_lower_unit,
+    trsm_left_lower_unit_into,
     trsm_right_upper,
     unit_lower,
     upper,
@@ -335,8 +336,7 @@ def _crout_steps(A, v, precision, partition, consume, chunk, compaction):
                        else Rpiv[:, k + w:]).to(cdt)
                 if k > 0:
                     rhs = sub_dot(rhs, Lpiv, F[:k, k + w:], mode)
-                F[k:k + w, k + w:] = trsm_left_lower_unit(
-                    unit_lower(lu_top), rhs, method="invert")
+                trsm_left_lower_unit_into(lu_top, rhs, F[k:k + w, k + w:])
         with span("lu.compact"):
             perm[k:k + w] = origin[piv]
             live = m_r - (dead if gather else w)

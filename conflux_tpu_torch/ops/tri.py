@@ -15,10 +15,22 @@ from __future__ import annotations
 
 import torch
 
+from conflux_tpu_torch.precision import ieee_fp32
+
 # diagonal-block size: c^32 amplification of a pivot-multiplier triangle
 # stays f32-safe; long-K outer row-block of the two-level substitution
 _TRSM_SUB = 32
 _TRSM_OUTER = 256
+# block rows of `solve_lower_rows` on the card, and the dtypes that take
+# it. Measured over crout's 21 winners' solves at N = 32768 on an H100
+# (w = 1536, device ms in sum): float32 rows 256 30.1, 384 32.0, 512 40.9,
+# the inverse chain 37.1; but at 256 the library's split-K products make up
+# to 16 kernels a solve, at 384 at most 10. float64 rows 256 52.7, 384 86.1
+# against the chain's 39.3 (the kernel's f64 FMAs run at half the fp32
+# rate, the chain's products on the f64 tensor cores), so float64 keeps
+# the chain
+_LSOLVE_ROWS = 384
+_LSOLVE_DTYPES = (torch.float32,)
 
 
 def _mm_f32acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -185,6 +197,54 @@ def _solve_unit_lower_blocked(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
                 rhs = rhs - L[i0:i1, o0:i0] @ X[o0:i0]
             X[i0:i1] = inv[i0 // _TRSM_SUB, : i1 - i0, : i1 - i0] @ rhs
     return X
+
+
+def _diag_solve_plain(lu: torch.Tensor, B: torch.Tensor,
+                      X: torch.Tensor) -> None:
+    """Plain PyTorch version of `ops/cuda_lower_solve.solve_diag`: X = L^{-1}
+    B written into X, L = tril(lu, -1) + I, by forward substitution row by
+    row (each row less its multipliers times the rows solved above)."""
+    X[0] = B[0]
+    for j in range(1, lu.shape[0]):
+        X[j] = B[j] - lu[j, :j] @ X[:j]
+
+
+def solve_lower_rows(lu: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
+                     diag=_diag_solve_plain) -> None:
+    """X = L^{-1} B written into X, L = tril(lu, -1) + I, by block rows of
+    `_LSOLVE_ROWS`: block i first takes the solved rows above it off its
+    right-hand sides, B_i -= L[i, :i] X[:i], one library product in place
+    in B (whose rows below the first block are overwritten), then
+    `diag(L_ii, B_i, X_i)` solves its own triangle (the card's kernel or
+    `_diag_solve_plain`). Two launches a block, one for the first."""
+    n = lu.shape[0]
+    for i0 in range(0, n, _LSOLVE_ROWS):
+        i1 = min(i0 + _LSOLVE_ROWS, n)
+        if i0:
+            B[i0:i1].addmm_(lu[i0:i1, :i0], X[:i0], alpha=-1)
+        diag(lu[i0:i1, i0:i1], B[i0:i1], X[i0:i1])
+
+
+def trsm_left_lower_unit_into(lu: torch.Tensor, B: torch.Tensor,
+                              out: torch.Tensor) -> None:
+    """out = L^{-1} B with L = tril(lu, -1) + I: crout's winners' solve,
+    out a slice of the factor. CUDA tensors of a `_LSOLVE_DTYPES` dtype
+    take `solve_lower_rows` with the card's diagonal kernel, which reads lu
+    in place, overwrites B and writes X into out where out has B's dtype
+    (else into a fresh tensor, which out's dtype takes on assignment);
+    every other tensor takes the JAX package's blocked substitution,
+    `trsm_left_lower_unit(unit_lower(lu), B, method="invert")`, which
+    leaves B as it was. Products in IEEE fp32 (`precision.ieee_fp32`)."""
+    if not (lu.is_cuda and B.dtype in _LSOLVE_DTYPES):
+        out.copy_(trsm_left_lower_unit(unit_lower(lu), B, method="invert"))
+        return
+    from conflux_tpu_torch.ops import cuda_lower_solve
+
+    X = out if out.dtype == B.dtype else torch.empty_like(B)
+    with ieee_fp32():
+        solve_lower_rows(lu, B, X, cuda_lower_solve.solve_diag)
+    if X is not out:
+        out.copy_(X)
 
 
 def _solve_right_upper_blocked(B: torch.Tensor, U: torch.Tensor) -> torch.Tensor:

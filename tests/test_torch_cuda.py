@@ -8,9 +8,11 @@ LU and the Cholesky end to end on the card, and the entry points' results
 bit-identical whatever TF32 setting the caller chose, K1 in double
 (csrc/rank1_panel_f64.cu) on each of its routes, the panel's
 pivot-triangle solve (csrc/panel_trsm.cu) against its plain version and
-by its launches per factorization, the panel's pivot-lane gather and
-scatter (csrc/lane_move.cu) against their plain versions and the panel
-loop bit for bit against its one-hot formulation
+by its launches per factorization, crout's winners' solve with its
+diagonal kernel (csrc/lower_solve.cu) against its plain version at the
+cells' shapes and by its launches per factorization, the panel's
+pivot-lane gather and scatter (csrc/lane_move.cu) against their plain
+versions and the panel loop bit for bit against its one-hot formulation
 (tests/torch_onehot_panel.py), and one float64 crout factorization at
 the benchmark cell lu.f64.n32768's size: its launches per kernel, its
 phase spans and its reading by the cell's judge. Without a card every
@@ -29,8 +31,8 @@ import torch_onehot_panel
 from conflux_tpu_torch import profiler
 from conflux_tpu_torch.cholesky.single import cholesky
 from conflux_tpu_torch.lu.single import lu_factor
-from conflux_tpu_torch.ops import cuda_gemm, cuda_lanes, cuda_panel, \
-    cuda_scatter, cuda_trsm, gemm
+from conflux_tpu_torch.ops import cuda_gemm, cuda_lanes, \
+    cuda_lower_solve, cuda_panel, cuda_scatter, cuda_trsm, gemm, tri
 from conflux_tpu_torch.ops.gemm import (
     _matmul_t,
     _schur_update_t,
@@ -1258,6 +1260,146 @@ def test_cholesky_at_4096_solves_pivot_triangles_on_card(card):
         _solves_per_panel(min(v, n - k), 64) for k in range(0, n, v))
     assert torch.equal(L, torch.tril(L))
     assert cholesky_residual_blocked(A, L) <= 1e-6
+
+
+# crout's winners' solve (ops/tri.solve_lower_rows with csrc/lower_solve.cu
+# on the diagonal blocks) at the cells' shapes: w = 1536 rows, c = N - k - w
+# columns at each step with k + w < N, N = 32768 (21 solves) and 16384 (10)
+WINNERS_W = 1536
+WINNERS_C = [n - k - WINNERS_W for n in (32768, 16384)
+             for k in range(0, n, WINNERS_W) if k + WINNERS_W < n]
+
+
+def _winners_solve(card, c, dtype, seed=0):
+    """(lu row-major on the card, as the step loop leaves it; B [W, c];
+    the float64 solve; 2 eps kappa_inf(L) max|B|)."""
+    luT, kappa = _pivot_triangle(WINNERS_W, dtype)
+    lu = luT.T.contiguous().to(card)
+    B = torch.from_numpy(np.random.default_rng(c + seed).standard_normal(
+        (WINNERS_W, c))).to(card, dtype)
+    L = torch.tril(lu.double(), -1) + torch.eye(
+        WINNERS_W, dtype=torch.float64, device=card)
+    ref = torch.linalg.solve_triangular(L, B.double(), upper=False,
+                                        unitriangular=True)
+    return lu, B, ref, 2 * torch.finfo(dtype).eps * kappa * float(
+        B.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c", WINNERS_C)
+def test_winners_solve_matches_plain_and_float64_on_card(card, c, dtype):
+    lu, B, ref, tol = _winners_solve(card, c, dtype)
+    X = torch.empty_like(B)
+    before = cuda_lower_solve.LAUNCHES
+    tri.solve_lower_rows(lu, B.clone(), X, cuda_lower_solve.solve_diag)
+    torch.cuda.synchronize()
+    assert cuda_lower_solve.LAUNCHES - before == -(
+        -WINNERS_W // tri._LSOLVE_ROWS)
+    # the plain version on the same CUDA tensors: row-by-row substitution
+    # on the diagonal blocks
+    plain = torch.empty_like(B)
+    tri.solve_lower_rows(lu, B.clone(), plain)
+    assert float((X - plain).abs().max()) <= tol
+    assert float((X.double() - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c", [WINNERS_C[0], WINNERS_C[-1]])
+def test_winners_solve_repeats_its_bits_on_card(card, c, dtype):
+    lu, B, _, _ = _winners_solve(card, c, dtype, seed=1)
+    runs = []
+    for _ in range(2):
+        X = torch.empty_like(B)
+        tri.solve_lower_rows(lu, B.clone(), X, cuda_lower_solve.solve_diag)
+        runs.append(X)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("layout", ["column-major", "strided out"])
+def test_winners_solve_layouts_on_card(card, layout):
+    # bf16 storage's lu_top is column-major; the factor's slice has ld > c
+    c = 2560
+    lu, B, ref, tol = _winners_solve(card, c, torch.float32, seed=2)
+    if layout == "column-major":
+        lu = lu.T.contiguous().T
+        X = torch.empty_like(B)
+    else:
+        F = torch.zeros(WINNERS_W + 4, c + 100, device=card)
+        X = F[4:, 100:]
+    tri.trsm_left_lower_unit_into(lu, B.clone(), X)
+    torch.cuda.synchronize()
+    assert float((X.double() - ref).abs().max()) <= tol
+    if layout == "strided out":
+        assert not bool(F[:4].any()) and not bool(F[:, :100].any())
+
+
+@pytest.mark.parametrize("c", WINNERS_C)
+def test_winners_solve_kernels_per_call_on_card(card, c):
+    # every kernel of one call, the library products' split-K reduces
+    # included, at most 12
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    lu, B, _, _ = _winners_solve(card, c, torch.float32)
+    X = torch.empty_like(B)
+    tri.trsm_left_lower_unit_into(lu, B.clone(), X)
+    Bw = B.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tri.trsm_left_lower_unit_into(lu, Bw, X)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    assert 1 <= kernels <= 12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_crout_at_4096_solves_winners_rows_in_the_kernel(card, dtype):
+    # v = 1536 'high': two steps solve their winners' rows (c = 2560 and
+    # 1024), 1536 / _LSOLVE_ROWS diagonal blocks each, in the dtypes that
+    # take the kernel; float64 keeps the inverse chain
+    n, v = 4096, 1536
+    g = torch.Generator(device=card).manual_seed(13)
+    A = torch.randn(n, n, generator=g, device=card, dtype=dtype)
+    before = cuda_lower_solve.LAUNCHES
+    F, perm = lu_factor(A, v=v, precision="high", scheme="crout")
+    torch.cuda.synchronize()
+    blocks = sum(-(-v // tri._LSOLVE_ROWS) for k in range(0, n, v)
+                 if k + v < n)
+    assert cuda_lower_solve.LAUNCHES - before == (
+        blocks if dtype in tri._LSOLVE_DTYPES else 0)
+    assert torch.equal(torch.sort(perm).values, torch.arange(n, device=card))
+    assert lu_residual_blocked(A, F, perm) <= (
+        1e-6 if dtype == torch.float32 else 1e-14)
+
+
+def test_winners_solve_checks_its_inputs(card):
+    lu = torch.eye(64, device=card)
+    B = torch.zeros(64, 8, device=card)
+    X = torch.empty_like(B)
+    before = cuda_lower_solve.LAUNCHES
+    solve = cuda_lower_solve.solve_diag
+    with pytest.raises(ValueError, match="CUDA"):
+        solve(lu.cpu(), B.cpu(), X.cpu())
+    with pytest.raises(TypeError, match="float32 or float64"):
+        solve(lu.bfloat16(), B.bfloat16(), X.bfloat16())
+    with pytest.raises(TypeError, match="one dtype"):
+        solve(lu, B.double(), X)
+    with pytest.raises(ValueError, match="512"):
+        solve(torch.eye(513, device=card), torch.zeros(513, 8, device=card),
+              torch.zeros(513, 8, device=card))
+    with pytest.raises(ValueError, match="c >= 1"):
+        solve(lu, B[:, :0], X[:, :0])
+    with pytest.raises(ValueError, match="shapes"):
+        solve(lu, B, X[:, :4])
+    with pytest.raises(ValueError, match="unit column stride"):
+        solve(lu, torch.zeros(8, 64, device=card).T, X)
+    with pytest.raises(ValueError, match="unit stride"):
+        solve(torch.eye(128, device=card)[::2, ::2], B, X)
+    with pytest.raises(ValueError, match="overlap"):
+        solve(lu, B, B)
+    assert cuda_lower_solve.LAUNCHES == before
 
 
 def test_f64_crout_at_the_cells_size(card):
